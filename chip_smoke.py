@@ -15,7 +15,8 @@ where it happened; any failure exits non-zero:
    the shapes its main path gives it (fp32 and bf16; the paged pool's
    scratch page poisoned with NaN; flash at B=8 H=12 S=1024 D=64 causal
    and at a ragged S=1000; the LM-head cross entropy at N=8184 E=768
-   V=50257 with ignored labels and a bias; the ring's block kernels at
+   V=50257 with ignored labels and a bias, and at GPT-2 XL's width
+   E=1600 with N and V ragged; the ring's block kernels at
    one rank's q, k, v of (8, 12, 256, 64), a diagonal and a past visit
    fed the whole sequence's lse and delta), with the maximum error, the
    tolerance, every backward run twice and compared bitwise, and
@@ -35,7 +36,7 @@ where it happened; any failure exits non-zero:
    AdamW ``Trainer`` steps on one 8 x 1024 batch, each launching 12
    flash forwards, 12 flash backwards, 1 CE forward and 1 CE backward,
    with a falling loss; step time, tokens/s, peak memory and a profiled
-   step;
+   step with the CE kernels' summed device time;
 6. train: BERT-large post-LN pretraining (24 layers, hidden 1024, 16
    heads, vocab 30522, dropout 0.1, ``fused_ln=True``, materialized
    ``(B, H, S, D)`` attention and MLM head): a step-0 check in fp32 at
@@ -61,8 +62,10 @@ against their plain versions at T = 12288, D = 1024, rate 0.1 (BERT-large
 at 96 x 128), fp32 and bf16: the kept/dropped pattern bitwise, the
 backward bitwise repeatable, and controls (the key's words swapped; in
 bf16 also the residual sum rounded to bf16) that must fail the check,
-and the ring's block backward fed the block's own lse, a control that
-must fail its check.
+the ring's block backward fed the block's own lse, a control that must
+fail its check, and the CE forward's plain version fed h and W rounded
+to TF32, a control that must fail the fp32 nll limit (a kernel that ran
+one-pass TF32 products would).
 
 Without a CUDA device the script prints no result and exits 2.
 """
@@ -70,6 +73,7 @@ Without a CUDA device the script prints no result and exits 2.
 import copy
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -79,7 +83,11 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
-PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# Peak rates of the data sheet.  fp32: the least time for fp32-accurate
+# products is 3xTF32 on the tensor cores, three TF32 products (495
+# TFLOP/s) for each, so 165 TFLOP/s; the SIMT rate, 67 TFLOP/s, gave the
+# bounds of the kernel table up to its restatement (PERF.md).
+PEAK_OPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 FLUSH_BYTES = 256 << 20         # larger than the 50 MB L2
 
 
@@ -576,20 +584,29 @@ def ce_bwd_control(h, w, y, lse, g, b, chunk=8192):
     return dh.to(h.dtype), dw
 
 
-def check_lm_head_ce(ce, flush, dtype, gen):
-    """Kernels vs plain at N=8184, E=768, V=50257 (the train step's head),
-    with a bias (db checked) and every 97th label ignored; each backward
-    run twice and compared bitwise; times without the bias, as the GPT
-    head runs."""
-    N, E, V = 8184, 768, 50257
+def tf32_inputs(x):
+    """x with the low 13 mantissa bits cleared: an fp32 tensor as a
+    one-pass TF32 product reads it."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def ce_case(gen, dtype, N, E, V):
+    """Inputs of a CE check: a bias, every 97th label ignored, dnll / N."""
     h = torch.randn((N, E), generator=gen).to("cuda", dtype)
     w = (torch.randn((V, E), generator=gen) * 0.02).to("cuda", dtype)
     b = (torch.randn(V, generator=gen) * 0.1).cuda()
     y = torch.randint(0, V, (N,), generator=gen, dtype=torch.int32)
     y[::97] = -1
     y = y.cuda()
+    dn = torch.randn(N, generator=gen).cuda() * (y != -1) / N
+    return h, w, b, y, dn
+
+
+def ce_compare(ce, name, h, w, b, y, dn):
+    """Kernels vs plain with the bias: nll / lse within 1e-5, every
+    gradient within ``CE_TOL``, each backward run twice and compared
+    bitwise.  Returns what the timing and the controls need."""
     live = y != -1
-    dn = torch.randn(N, generator=gen).cuda() * live / N
     lse, ylog = ce.lm_head_ce_fwd(h, w, y, bias=b)
     grads = ce.lm_head_ce_bwd(h, w, y, lse, dn, bias=b)
     again = ce.lm_head_ce_bwd(h, w, y, lse, dn, bias=b)
@@ -601,7 +618,7 @@ def check_lm_head_ce(ce, flush, dtype, gen):
     errs.update({n: ce_grad_err(a, c) for n, a, c in
                  zip(("dh", "dW", "db"), grads, pgrads)})
     same = all(torch.equal(a, c) for a, c in zip(grads, again))
-    print(f"lm_head_ce {dtype}: relative errors "
+    print(f"lm_head_ce {name}: relative errors "
           + " ".join(f"{n} {e:.3e}" for n, e in errs.items())
           + f"; tol nll/lse 1e-5, grads {CE_TOL:g} of each gradient's own "
           f"max (fp32 sums in another order; bf16: beyond one bf16 "
@@ -609,6 +626,29 @@ def check_lm_head_ce(ce, flush, dtype, gen):
     assert errs["nll"] <= 1e-5 and errs["lse"] <= 1e-5, errs
     assert max(errs[n] for n in ("dh", "dW", "db")) <= CE_TOL, errs
     assert same, "lm_head_ce backward is not bitwise repeatable"
+    return lse, nll, pnll, grads, pgrads
+
+
+def check_lm_head_ce(ce, flush, dtype, gen, card):
+    """Kernels vs plain at N=8184, E=768, V=50257 (the train step's head),
+    with a bias (db checked) and every 97th label ignored; each backward
+    run twice and compared bitwise; controls that must fail; then a
+    ragged case at GPT-2 XL's width (N=300, E=1600, V=8193), untimed;
+    times without the bias, as the GPT head runs."""
+    N, E, V = 8184, 768, 50257
+    h, w, b, y, dn = ce_case(gen, dtype, N, E, V)
+    live = y != -1
+    lse, nll, pnll, grads, pgrads = ce_compare(ce, f"{dtype}", h, w, b, y,
+                                               dn)
+    if dtype == torch.float32:
+        # a kernel that ran one-pass TF32 products reads its inputs so
+        clse, cylog = ce.lm_head_ce_fwd_plain(tf32_inputs(h), tf32_inputs(w),
+                                              y, bias=b)
+        c_nll = rel_err((clse - cylog)[live], pnll[live])
+        print(f"lm_head_ce {dtype}: control with h and W rounded to TF32: "
+              f"nll {c_nll:.3e} (must exceed tol 1e-5)")
+        assert c_nll > 1e-5, "the CE check cannot tell one-pass TF32"
+        del clse, cylog
     cdh, cdw = ce_bwd_control(h, w, y, lse, dn, b)
     ctrl = {"dh": ce_grad_err(cdh, pgrads[0]),
             "dW": ce_grad_err(cdw, pgrads[1])}
@@ -618,6 +658,8 @@ def check_lm_head_ce(ce, flush, dtype, gen):
           f"dW {ctrl['dW']:.3e} (each must exceed tol {CE_TOL:g})")
     assert min(ctrl.values()) > CE_TOL, "the CE check cannot tell the fault"
     del cdh, cdw
+    ce_compare(ce, f"{dtype} N=300 E=1600 V=8193",
+               *ce_case(gen, dtype, 300, 1600, 8193))
     s = torch.finfo(dtype).bits // 8
     ops = 2 * N * E * V
     f_ms, f_by = bound((N + V) * E * s + N * 4 + 2 * N * 4, ops, dtype)
@@ -646,7 +688,9 @@ def check_lm_head_ce(ce, flush, dtype, gen):
           f"{plain_ms:.4f} library_ms {lib_ms:.4f} (cross_entropy(h @ W.T))"
           f" bound_ms {f_ms:.4f} ({f_by}); backward kernel_ms {bms:.4f} "
           f"plain_ms {bplain_ms:.4f} bound_ms {b_ms:.4f} ({b_by}); library "
-          f"forward+backward {lib_fb_ms:.4f} ms")
+          f"forward+backward {lib_fb_ms:.4f} ms; {card}")
+    print(f"lm_head_ce {dtype}: kernel below the library: forward "
+          f"{ms < lib_ms}, backward {bms < lib_fb_ms}")
     fwd = {"max_abs_err": (nll[live] - pnll[live]).abs().max().item(),
            "ms": ms, "plain_ms": plain_ms, "bound_ms": f_ms,
            "bound_by": f_by, "library_ms": lib_ms}
@@ -985,8 +1029,9 @@ def ring_phase(fl, ce, gpt_mod, card, flash_losses):
 PROFILE_GROUPS = (
     ("fused LN", ("::ln_fwd", "::ln_bwd", "::ln_sum_parts")),
     ("flash (whole-sequence, or the ring's blocks)", ("::flash_",)),
+    ("LM-head cross entropy", ("::ce_",)),
     ("the port's other CUDA kernels", (
-        "::ce_", "::sum_splits", "::head_topk_", "::paged_decode_kernel")),
+        "::head_topk_", "::paged_decode_kernel")),
     ("matrix products", ("gemm", "nvjet", "cutlass", "xmma")),
     ("int64 elementwise (dropout hash)", ("<long",)),
     ("elementwise and copies", ("elementwise", "copy")),
@@ -1024,6 +1069,10 @@ def profile_step(step, med):
     print("  by group: " + "; ".join(
         f"{g} {t:.3f} ms ({c} launches)"
         for g, (t, c) in sorted(groups.items(), key=lambda kv: -kv[1][0])))
+    if "LM-head cross entropy" in groups:
+        t, c = groups["LM-head cross entropy"]
+        print(f"  LM-head CE kernels (forward and backward): {t:.3f} ms of "
+              f"device time in {c} launches")
 
 
 def bert_batch(vocab, batch, seq, seed=0):
@@ -1244,7 +1293,11 @@ def main() -> int:
     print(f"kernels built and loaded in {time.monotonic() - t0:.2f} s "
           f"from {_build.SRC_DIR}")
     for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line or "==" in line:
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:   # the mangled name, its anonymous-namespace prefix cut
+            print("  " + re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+",
+                                "", entry.group(1))[:100])
+        elif "registers" in line or "spill" in line or "==" in line:
             print("  " + line.strip())
 
     phase("3 kernels vs plain")
@@ -1259,7 +1312,7 @@ def main() -> int:
     check_flash(fl, flush, torch.float32, 1000, gen, timed=False)
     blk_rows = {dt: check_flash_block(fl, flush, dt, gen)
                 for dt in (torch.float32, torch.bfloat16)}
-    ce_rows = {dt: check_lm_head_ce(ce, flush, dt, gen)
+    ce_rows = {dt: check_lm_head_ce(ce, flush, dt, gen, smi)
                for dt in (torch.float32, torch.bfloat16)}
     fln_rows = {dt: check_fused_ln(fln, prng, flush, dt, gen)
                 for dt in (torch.float32, torch.bfloat16)}

@@ -133,11 +133,10 @@ _SIGNATURES = {
     "hetu_flash_bwd": [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                        _I, _I, _I, _I, _I, _I, _F, _VP],
     "hetu_flash_block_bwd": [_I] + [_VP] * 9 + [_I] * 6 + [_F, _VP],
-    "hetu_ce_max_hidden": [],
     "hetu_ce_fwd": [_I, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP, _VP,
                     _VP],
     "hetu_ce_bwd": [_I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP,
-                    _VP, _VP, _VP, _VP],
+                    _VP, _VP, _VP, _VP, _VP],
     "hetu_fused_ln_parts": [_I],
     "hetu_fused_ln_max_d": [],
     "hetu_fused_ln_fwd": [_I] + [_VP] * 7 + [_I, _I, _U, _U, _U, _F, _F, _VP],

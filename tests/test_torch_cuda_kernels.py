@@ -156,7 +156,11 @@ def test_flash_kernels_match_plain(cuda, dtype, causal, S, D):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("N,E,V", [(1, 32, 7), (70, 64, 1100), (33, 96, 2049)])
+@pytest.mark.parametrize("N,E,V", [
+    (1, 32, 7), (70, 64, 1100), (33, 96, 2049),
+    # ragged at the 128 tile and the backward's vocab chunks; E off the K
+    # slab (40), off a 16-byte row (100 in bf16, 33), GPT-2 XL's 1600
+    (129, 40, 8193), (129, 100, 8193), (129, 33, 300), (64, 1600, 8193)])
 @pytest.mark.parametrize("with_bias", [False, True])
 def test_lm_head_ce_kernels_match_plain(cuda, dtype, N, E, V, with_bias):
     from hetu_tpu_torch.ops.kernels import lm_head_ce as ce
