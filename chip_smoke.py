@@ -13,7 +13,10 @@ where it happened; any failure exits non-zero:
    ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/``;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes its main path gives it (fp32 and bf16; the paged pool's
-   scratch page poisoned with NaN; flash at B=8 H=12 S=1024 D=64 causal
+   scratch page poisoned with NaN, a length-0 row NaN, the length-1024
+   row served alone bitwise the same as in the batch, and paged decode
+   timed again at the lengths phase 4's 126 decode steps reach; flash at
+   B=8 H=12 S=1024 D=64 causal
    and at a ragged S=1000; the LM-head cross entropy at N=8184 E=768
    V=50257 with ignored labels and a bias, and at GPT-2 XL's width
    E=1600 with N and V ragged; the ring's block kernels at
@@ -67,7 +70,10 @@ fail its check, and the plain versions of the CE forward fed h and W,
 and of the flash forward fed q, k and v, rounded to TF32: controls that
 must fail the fp32 limits (a kernel that ran one-pass TF32 products
 would).  Phase 8 prints each flash kernel's time beside the prediction
-made before its tensor-core redesign first ran.
+made before its tensor-core redesign first ran, and likewise paged
+decode's and the fused-LN backward's beside their predictions and their
+times before their redesign, and paged decode's device time over phase
+4's run at phase 4's lengths.
 
 Without a CUDA device the script prints no result and exits 2.
 """
@@ -91,6 +97,7 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 # bounds of the kernel table up to its restatement (PERF.md).
 PEAK_OPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 FLUSH_BYTES = 256 << 20         # larger than the 50 MB L2
+SERVE_SLOTS, SERVE_BUDGET = 8, 64   # phase 4: slots, new tokens a request
 
 
 def phase(name):
@@ -100,12 +107,16 @@ def phase(name):
 
 def time_ms(fn, flush, reps=30, warmup=3):
     """Median device time of ``fn`` over ``reps`` launches, each after an
-    L2 flush (the caller finds the data cold, as the engine does)."""
+    L2 flush (the caller finds the data cold, as the engine does).  A
+    spin of about 0.1 ms follows each flush, so the host has enqueued
+    ``fn``'s launches before the start event: a wrapper's Python time
+    (slower when the host is busy) does not reach the measurement."""
     for _ in range(warmup):
         fn()
     events = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(200_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -184,9 +195,22 @@ def check_paged_decode(pd, flush, dtype, gen):
     v[:, 0] = float("nan")
     out = pd.paged_decode_attention(q, k, v, tables, sl, layer=layer)
     plain = pd.paged_decode_attention_plain(q, k, v, tables, sl, layer=layer)
+    # the row of length 1024 served alone; row 0 cut to length 0
+    alone = pd.paged_decode_attention(q[-1:].contiguous(), k, v,
+                                      tables[-1:].contiguous(),
+                                      sl[-1:].contiguous(), layer=layer)
+    sl0 = sl.clone()
+    sl0[0] = 0
+    out0 = pd.paged_decode_attention(q, k, v, tables, sl0, layer=layer)
     torch.cuda.synchronize()
     assert torch.isfinite(out.float()).all(), "NaN leaked from scratch page"
     assert torch.equal(out, clean), "scratch-page poison changed the output"
+    assert torch.equal(alone[0], out[-1]), \
+        "the 1024-length row alone differs from the same row in the batch"
+    assert torch.isnan(out0[0].float()).all(), "a length-0 row is not NaN"
+    assert torch.equal(out0[1:], out[1:]), "a length-0 row moved the others"
+    print(f"paged_decode {dtype}: the length-1024 row alone == in the batch "
+          f"(bitwise); a length-0 row is NaN, the other rows unchanged")
     err = (out.float() - plain.float()).abs().max().item()
     tol = 2e-5
     if dtype == torch.float32:
@@ -222,6 +246,73 @@ def check_paged_decode(pd, flush, dtype, gen):
           f"{nbytes} bytes)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def serve_prompts(vocab):
+    """Phase 4's 16 prompts of 5-128 tokens (numpy seed 0)."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, vocab, int(n)).tolist()
+            for n in rng.integers(5, 129, 16)]
+
+
+def serve_decode_lengths(prompt_lens):
+    """Each decode step's paged-decode lengths in phase 4.  Every request
+    has the same budget, so the slots fill in waves of SERVE_SLOTS in
+    submission order; decode step j (1 .. budget - 1) of a wave reads
+    prompt + j positions, the fed token's K/V included, and an idle slot
+    reads 1 (the scratch page)."""
+    steps = []
+    for w in range(0, len(prompt_lens), SERVE_SLOTS):
+        wave = list(prompt_lens[w:w + SERVE_SLOTS])
+        wave += [0] * (SERVE_SLOTS - len(wave))
+        for j in range(1, SERVE_BUDGET):
+            steps.append([n + j if n else 1 for n in wave])
+    return steps
+
+
+def time_paged_decode_serve(pd, flush, gen, prompt_lens):
+    """fp32 kernel vs plain at the lengths phase 4's decode steps reach,
+    on GPT-2 small's pool (12 layers, page 16, 64 pages a row) read at
+    its last layer: every step's kernel output against the plain
+    version's (2e-5), and each step's median time; returns the means
+    over the steps."""
+    steps = serve_decode_lengths(prompt_lens)
+    H, D, page, L, pps = 12, 64, 16, 12, 64
+    per_row = -(-max(max(s) for s in steps) // page)
+    P = 1 + SERVE_SLOTS * per_row
+    tables = torch.zeros((SERVE_SLOTS, pps), dtype=torch.int32)
+    for b in range(SERVE_SLOTS):
+        tables[b, :per_row] = 1 + b * per_row + torch.arange(per_row)
+    k, v = (torch.randn((L, P, page, H, D), generator=gen).cuda()
+            for _ in range(2))
+    q = torch.randn((SERVE_SLOTS, H, D), generator=gen).cuda()
+    tables = tables.cuda()
+    ms, plain_ms, bound_ms, err = [], [], [], 0.0
+    for lens in steps:
+        sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        args = (q, k, v, tables, sl)
+        out = pd.paged_decode_attention(*args, layer=L - 1)
+        ref = pd.paged_decode_attention_plain(*args, layer=L - 1)
+        err = max(err, (out - ref).abs().max().item())
+        ms.append(time_ms(lambda: pd.paged_decode_attention(
+            *args, layer=L - 1), flush, reps=10, warmup=1))
+        plain_ms.append(time_ms(lambda: pd.paged_decode_attention_plain(
+            *args, layer=L - 1), flush, reps=3, warmup=1))
+        nbytes = (2 * sum(lens) * H * D * 4 + 2 * SERVE_SLOTS * H * D * 4
+                  + SERVE_SLOTS * pps * 4 + SERVE_SLOTS * 4)
+        bound_ms.append(bound(nbytes, 4 * sum(lens) * H * D,
+                              torch.float32)[0])
+    mean = statistics.mean
+    print(f"paged_decode float32 at phase 4's lengths ({len(steps)} decode "
+          f"steps, lengths {min(min(s) for s in steps)}-"
+          f"{max(max(s) for s in steps)}): max_abs_err {err:.3e} tol 2e-5; "
+          f"kernel_ms {mean(ms):.4f} (median of steps {statistics.median(ms):.4f}, "
+          f"max {max(ms):.4f}) plain_ms {mean(plain_ms):.4f} bound_ms "
+          f"{mean(bound_ms):.4f} (bytes), means over the steps")
+    assert err <= 2e-5, f"paged_decode at the serve lengths: {err} > 2e-5"
+    return {"serve_steps": len(steps), "serve_ms": mean(ms),
+            "serve_plain_ms": mean(plain_ms),
+            "serve_bound_ms": mean(bound_ms)}
 
 
 def check_lm_head(lh, flush, dtype, k, gen):
@@ -263,31 +354,41 @@ def rel_err(x, ref):
     return ((x.float() - ref).abs().max() / ref.abs().max()).item()
 
 
-# The flash kernels' times predicted before their tensor-core redesign was
-# first run (PERF.md, Findings), in ms: the whole-sequence kernels at (8,
-# 12, 1024, 64) causal, the ring's block kernels per launch at (8, 12,
-# 256, 64), a causal sp=4 layer's mean.
-FLASH_PREDICTED_MS = {
-    ("flash_fwd", torch.float32): (0.20, 0.40),
-    ("flash_bwd", torch.float32): (0.7, 1.4),
-    ("flash_block_fwd", torch.float32): (0.03, 0.06),
-    ("flash_block_bwd", torch.float32): (0.08, 0.16),
-    ("flash_fwd", torch.bfloat16): (0.06, 0.15),
-    ("flash_bwd", torch.bfloat16): (0.25, 0.6),
+# Each redesigned kernel's time predicted before its redesign first ran
+# (PERF.md, Findings), in ms, with its time in PERF.md's table before the
+# redesign (None where none was kept): (name, dtype) -> (low, high,
+# before).  PR 6's flash kernels at (8, 12, 1024, 64) causal, the ring's
+# block kernels per launch at (8, 12, 256, 64), a causal sp=4 layer's
+# mean; PR 7's paged decode at B=8 H=12 D=64 page 16, lengths 1..1024,
+# and fused-LN backward at T=12288 D=1024.
+PREDICTED_MS = {
+    ("flash_fwd", torch.float32): (0.20, 0.40, 0.6654),
+    ("flash_bwd", torch.float32): (0.7, 1.4, 2.0543),
+    ("flash_block_fwd", torch.float32): (0.03, 0.06, 0.0822),
+    ("flash_block_bwd", torch.float32): (0.08, 0.16, 0.2591),
+    ("flash_fwd", torch.bfloat16): (0.06, 0.15, 0.6688),
+    ("flash_bwd", torch.bfloat16): (0.25, 0.6, 2.0751),
+    ("paged_decode_attention", torch.float32): (0.010, 0.025, 0.0871),
+    ("paged_decode_attention", torch.bfloat16): (0.008, 0.020, None),
+    ("fused_ln_bwd", torch.bfloat16): (0.045, 0.075, 0.1553),
+    ("fused_ln_bwd", torch.float32): (0.085, 0.12, 0.1636),
 }
 
 
-def print_flash_predictions(rows):
-    """Each flash kernel's time beside its prediction and its library
-    call's time; rows maps (name, dtype) to a kernels-line entry."""
-    for (name, dtype), (lo, hi) in FLASH_PREDICTED_MS.items():
+def print_predictions(rows):
+    """Each redesigned kernel's time beside its prediction, its time
+    before the redesign, its bound and its library call's time; rows maps
+    (name, dtype) to a kernels-line entry."""
+    for (name, dtype), (lo, hi, before) in PREDICTED_MS.items():
         r = rows[(name, dtype)]
-        lib = r["library_ms"]
-        lib_txt = ("none" if lib is None
-                   else f"{lib:.4f} ms ({r['ms'] / lib:.2f}x)")
-        print(f"prediction: {name} {dtype} {r['ms']:.4f} ms, predicted "
-              f"{lo:g}-{hi:g} ms ({'in' if lo <= r['ms'] <= hi else 'out of'}"
-              f" range); library {lib_txt}")
+        ms, lib = r["ms"], r["library_ms"]
+        was = ("not recorded" if before is None
+               else f"{before:g} ms ({before / ms:.2f}x this)")
+        lib_txt = "none" if lib is None else f"{lib:.4f} ms ({ms / lib:.2f}x)"
+        print(f"prediction: {name} {dtype} {ms:.4f} ms, predicted "
+              f"{lo:g}-{hi:g} ms ({'in' if lo <= ms <= hi else 'out of'} "
+              f"range); before the redesign {was}; bound "
+              f"{r['bound_ms']:.4f} ms; library {lib_txt}")
 
 
 # (forward O, gradients) tolerances of the flash check, relative to the
@@ -840,6 +941,9 @@ def check_fused_ln(fln, prng, flush, dtype, gen):
                                           bl), flush)
     bms = time_ms(lambda: fln.fused_ln_bwd(do, x, y, s, mean, rstd,
                                            keep_g=keep_g, **kw), flush)
+    # information: the same bytes without the mask's two hash rounds and
+    # two exact divisions an element (thresh 0)
+    b0ms = time_ms(lambda: fln.fused_ln_bwd(do, x, y, s, mean, rstd), flush)
     bplain_ms = time_ms(lambda: fln.fused_ln_bwd_plain(
         do, x, y, s, mean, rstd, keep_g=keep_g, **kw), flush, reps=10)
     xg, yg, sg, bg = (t.detach().clone().requires_grad_()
@@ -854,7 +958,7 @@ def check_fused_ln(fln, prng, flush, dtype, gen):
           f"dropout(y)), another mask) bound_ms {f_ms:.4f} ({f_by}); "
           f"backward kernel_ms {bms:.4f} plain_ms {bplain_ms:.4f} bound_ms "
           f"{b_ms:.4f} ({b_by}); library forward+backward {lib_fb_ms:.4f} "
-          f"ms")
+          f"ms; backward without dropout {b0ms:.4f} ms")
     fwd = {"max_abs_err": (out.float() - pout.float()).abs().max().item(),
            "ms": ms, "plain_ms": plain_ms, "bound_ms": f_ms,
            "bound_by": f_by, "library_ms": lib_ms,
@@ -1069,7 +1173,7 @@ PROFILE_GROUPS = (
     ("flash (whole-sequence, or the ring's blocks)", ("::flash_",)),
     ("LM-head cross entropy", ("::ce_",)),
     ("the port's other CUDA kernels", (
-        "::head_topk_", "::paged_decode_kernel")),
+        "::head_topk_", "::paged_decode_")),
     ("matrix products", ("gemm", "nvjet", "cutlass", "xmma")),
     ("int64 elementwise (dropout hash)", ("<long",)),
     ("elementwise and copies", ("elementwise", "copy")),
@@ -1077,9 +1181,31 @@ PROFILE_GROUPS = (
 )
 
 
+def union_ms(spans):
+    """The length of the union of ``(start, end)`` intervals in µs, in
+    ms."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
+def device_spans(prof):
+    """``(name, start, end)`` of every device activity under ``prof``.
+    Busy time is the union of these: a kernel launched as a programmatic
+    dependent (paged decode's merge, the fused-LN backward's partial
+    sums) starts while the kernel before it runs and waits inside
+    itself, so summed durations would count that overlap twice."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events() if e.device_type == cuda]
+
+
 def profile_step(step, med):
-    """One profiled call of ``step``: the device's busy time and its ten
-    largest items."""
+    """One profiled call of ``step``: the device's busy time, its ten
+    largest items and the busy time of each group of kernels."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1093,18 +1219,20 @@ def profile_step(step, med):
         print("train step device time: not measured (the profiler saw no "
               "device activity)")
         return
-    dev_ms = sum(r[1] for r in rows) / 1e3
+    spans = device_spans(prof)
+    dev_ms = union_ms([sp[1:] for sp in spans])
     print(f"train step under the profiler: device busy {dev_ms:.3f} ms "
-          f"({dev_ms / (med * 1e3):.1%} of the median bare step)")
+          f"({dev_ms / (med * 1e3):.1%} of the median bare step; kernel "
+          f"durations sum to {sum(r[1] for r in rows) / 1e3:.3f} ms)")
     for key, us, n in sorted(rows, key=lambda r: -r[1])[:10]:
         print(f"  {us / 1e3:9.3f} ms  {n:5d} launches  {key[:90]}")
     groups = {}
-    for key, us, n in rows:
-        g = next((name for name, marks in PROFILE_GROUPS
-                  if any(m in key for m in marks)), "other")
-        t, c = groups.get(g, (0.0, 0))
-        groups[g] = (t + us / 1e3, c + n)
-    print("  by group: " + "; ".join(
+    for name, a, b in spans:
+        g = next((g for g, marks in PROFILE_GROUPS
+                  if any(m in name for m in marks)), "other")
+        groups.setdefault(g, []).append((a, b))
+    groups = {g: (union_ms(sp), len(sp)) for g, sp in groups.items()}
+    print("  by group (busy time): " + "; ".join(
         f"{g} {t:.3f} ms ({c} launches)"
         for g, (t, c) in sorted(groups.items(), key=lambda kv: -kv[1][0])))
     if "LM-head cross entropy" in groups:
@@ -1286,9 +1414,10 @@ def profile_decode(make_engine, prompts, steps=10):
         print("device busy time: not measured (the profiler saw no device "
               "activity)")
         return
-    dev_ms = sum(r[1] for r in rows) / 1e3 / steps
+    dev_ms = union_ms([sp[1:] for sp in device_spans(prof)]) / steps
     print(f"device busy {dev_ms:.3f} ms per step, {dev_ms / (bare * 1e3):.1%}"
-          f" of the bare step (torch.profiler)")
+          f" of the bare step (torch.profiler; kernel durations sum to "
+          f"{sum(r[1] for r in rows) / 1e3 / steps:.3f} ms)")
     for key, us, n in sorted(rows, key=lambda r: -r[1])[:8]:
         print(f"  {us / 1e3 / steps:8.4f} ms/step  {n // steps:4d} "
               f"launches/step  {key[:90]}")
@@ -1343,6 +1472,10 @@ def main() -> int:
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     pd_rows = {dt: check_paged_decode(pd, flush, dt, gen)
                for dt in (torch.float32, torch.bfloat16)}
+    serve_lens = [len(p) for p in serve_prompts(gpt2_small().vocab_size)]
+    pd_rows[torch.float32].update(
+        time_paged_decode_serve(pd, flush, torch.Generator().manual_seed(7),
+                                serve_lens))
     lm_rows = {(dt, k): check_lm_head(lh, flush, dt, k, gen)
                for dt in (torch.float32, torch.bfloat16) for k in (1, 5)}
     fl_rows = {dt: check_flash(fl, flush, dt, 1024, gen, timed=True)
@@ -1365,13 +1498,12 @@ def main() -> int:
           f"{cfg.num_heads} heads, vocab {cfg.vocab_size}, "
           f"{sum(p.numel() for p in model.parameters())} parameters, "
           f"built in {time.monotonic() - t0:.2f} s")
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
-               for n in rng.integers(5, 129, 16)]
-    budget = 64
+    prompts = serve_prompts(cfg.vocab_size)
+    budget = SERVE_BUDGET
 
     def engine(**kw):
-        return ServingEngine(model, num_slots=8, page_size=16, **kw)
+        return ServingEngine(model, num_slots=SERVE_SLOTS, page_size=16,
+                             **kw)
 
     warm = engine()
     warm.submit(prompts[0][:5], max_new_tokens=2)
@@ -1412,6 +1544,8 @@ def main() -> int:
     print(f"launches {launches}, decode steps {steps}, prefills "
           f"{st['prefills']}, contiguous views {views}")
     assert launches["paged_decode_attention"] == cfg.num_layers * steps > 0
+    assert steps == len(serve_decode_lengths(serve_lens)), \
+        "phase 3 timed paged decode at other lengths than this run's"
     assert launches["lm_head_sample"] == steps > 0
     assert views == len(prompts), "decode built a contiguous K/V view"
     ttft = sorted(h.ttft_s for h in handles)
@@ -1524,13 +1658,23 @@ def main() -> int:
              launches=ring_launches["flash_block_bwd"],
              **ring_mix(blk_rows[f32], 1)),
     ]
-    print_flash_predictions({
+    print_predictions({
         ("flash_fwd", f32): fl_rows[f32][0],
         ("flash_bwd", f32): fl_rows[f32][1],
         ("flash_fwd", bf16): fl_rows[bf16][0],
         ("flash_bwd", bf16): fl_rows[bf16][1],
         ("flash_block_fwd", f32): ring_mix(blk_rows[f32], 0),
-        ("flash_block_bwd", f32): ring_mix(blk_rows[f32], 1)})
+        ("flash_block_bwd", f32): ring_mix(blk_rows[f32], 1),
+        ("paged_decode_attention", f32): pd_rows[f32],
+        ("paged_decode_attention", bf16): pd_rows[bf16],
+        ("fused_ln_bwd", f32): fln_rows[f32][1],
+        ("fused_ln_bwd", bf16): fln_rows[bf16][1]})
+    r = pd_rows[f32]
+    n = launches["paged_decode_attention"]
+    print(f"paged_decode over phase 4's run: {n} launches x "
+          f"{r['serve_ms']:.4f} ms = {n * r['serve_ms']:.3f} ms, "
+          f"{n * (r['serve_ms'] - r['serve_bound_ms']):.3f} ms above the "
+          f"bound ({n} x {r['serve_bound_ms']:.4f} ms)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

@@ -24,26 +24,37 @@
 // arithmetic, two hash rounds (about 20 integer operations) and a few
 // fp32 operations per element, is far below the card's rates.
 //
-// Design.  One warp per row, the row held in registers (D / 32 values a
-// lane, loaded 4 contiguous elements at a time), every reduction a warp
-// shuffle: no shared memory and no barrier in the forward.  D must be a
-// multiple of 128 and at most 1024.  The backward walks its rows with a
-// grid stride over a grid fixed by T alone (at most kBwdBlocks blocks),
-// keeps each lane's dscale / dbias partial sums in registers across its
-// rows, sums the block's warps in a fixed order through shared memory into
-// one (D,) partial per block, and a second kernel adds the partials of
-// all blocks in a fixed order.  No atomics: a rerun is bitwise the same.
-// This is the simple version; the loads are plain vector loads, not TMA.
+// Design of the forward.  One warp per row, the row held in registers (D /
+// 32 values a lane, loaded 4 contiguous elements at a time), every
+// reduction a warp shuffle: no shared memory and no barrier.  D must be a
+// multiple of 128 and at most 1024.
+//
+// Design of the backward.  A persistent grid of `parts` blocks of 128
+// threads, `parts` a function of the row count alone (the wrapper's
+// bwd_parts: at most one wave of 8 blocks on each of the H100's 132 SMs);
+// block g takes rows g, g + parts, ...  A row is spread over the block,
+// each thread holding D / 128 contiguous columns (16 bytes of each tensor
+// at D = 1024 in bf16), so a thread keeps only its own columns' dscale /
+// dbias sums.  dout, x and y of the block's next rows, with their mean and
+// rstd, are staged into a ring of shared memory by cp.async while the
+// current row computes (3 rows ahead at D = 1024 in bf16, 1 in fp32), and
+// the row's two sums cross the block's 4 warps through shared memory in a
+// fixed order.  Each block writes its columns' sums as one (D,) partial,
+// and ln_sum_parts, launched as a programmatic dependent so that its launch
+// overlaps ln_bwd's run, adds the partials in a fixed order.  No atomics: a
+// rerun is bitwise the same.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_sm90.cuh"
+
 namespace {
 
-constexpr int kWarps = 4;         // rows in flight per block, one per warp
+constexpr int kWarps = 4;         // forward: rows per block, one per warp
 constexpr int kMaxNJ = 8;         // D / 128 at most: D <= 1024
-constexpr int kBwdBlocks = 512;   // most blocks of the backward (partials)
+constexpr int kBwdThreads = 128;  // backward: one row per block at a time
 
 __device__ __forceinline__ uint32_t hash_mix(uint32_t x, uint32_t k) {
   x ^= k;
@@ -160,109 +171,248 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-template <typename T, int NJ>
-__global__ void __launch_bounds__(kWarps * 32)
+// A 32-bit word as its fp32 elements (1 of fp32, 2 of bf16), and back.
+__device__ __forceinline__ void unpack(uint32_t w, float* v, float) {
+  v[0] = __uint_as_float(w);
+}
+__device__ __forceinline__ void unpack(uint32_t w, float* v, __nv_bfloat16) {
+  v[0] = __uint_as_float(w << 16);
+  v[1] = __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ uint32_t pack(const float* v, float) {
+  return __float_as_uint(v[0]);
+}
+__device__ __forceinline__ uint32_t pack(const float* v, __nv_bfloat16) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16(v[0])) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16(v[1])) << 16);
+}
+
+// NV contiguous elements of T at p as fp32, and back, by the widest access
+// (16, 8 or 4 bytes) that divides the run; element by element where the run
+// is not a whole number of words (bf16 with NV odd).
+template <typename T, int NV>
+__device__ __forceinline__ void load_run(const T* p, float v[NV]) {
+  constexpr int kBytes = NV * (int)sizeof(T);
+  if constexpr (kBytes % 4 != 0) {
+#pragma unroll
+    for (int e = 0; e < NV; ++e) v[e] = __bfloat162float(p[e]);
+  } else {
+    constexpr int W = kBytes % 16 == 0 ? 4 : kBytes % 8 == 0 ? 2 : 1;
+    constexpr int kPer = 4 / (int)sizeof(T);
+    const uint32_t* q = reinterpret_cast<const uint32_t*>(p);
+#pragma unroll
+    for (int i = 0; i < kBytes / 4; i += W) {
+      uint32_t w[W];
+      if constexpr (W == 4) {
+        const uint4 t = *reinterpret_cast<const uint4*>(q + i);
+        w[0] = t.x; w[1] = t.y; w[2] = t.z; w[3] = t.w;
+      } else if constexpr (W == 2) {
+        const uint2 t = *reinterpret_cast<const uint2*>(q + i);
+        w[0] = t.x; w[1] = t.y;
+      } else {
+        w[0] = q[i];
+      }
+#pragma unroll
+      for (int k = 0; k < W; ++k) unpack(w[k], v + (i + k) * kPer, T());
+    }
+  }
+}
+template <typename T, int NV>
+__device__ __forceinline__ void store_run(T* p, const float v[NV]) {
+  constexpr int kBytes = NV * (int)sizeof(T);
+  if constexpr (kBytes % 4 != 0) {
+#pragma unroll
+    for (int e = 0; e < NV; ++e) p[e] = __float2bfloat16(v[e]);
+  } else {
+    constexpr int W = kBytes % 16 == 0 ? 4 : kBytes % 8 == 0 ? 2 : 1;
+    constexpr int kPer = 4 / (int)sizeof(T);
+    uint32_t* q = reinterpret_cast<uint32_t*>(p);
+#pragma unroll
+    for (int i = 0; i < kBytes / 4; i += W) {
+      uint32_t w[W];
+#pragma unroll
+      for (int k = 0; k < W; ++k) w[k] = pack(v + (i + k) * kPer, T());
+      if constexpr (W == 4)
+        *reinterpret_cast<uint4*>(q + i) = make_uint4(w[0], w[1], w[2], w[3]);
+      else if constexpr (W == 2)
+        *reinterpret_cast<uint2*>(q + i) = make_uint2(w[0], w[1]);
+      else
+        q[i] = w[0];
+    }
+  }
+}
+
+// Rows staged ahead: as many as fit 24 KB (with 8 blocks an SM), 2 to 4:
+// 4 at D = 1024 in bf16, 2 in fp32.
+template <typename T, int D>
+__host__ __device__ constexpr int bwd_stages() {
+  constexpr int s = 24576 / (3 * D * (int)sizeof(T));
+  return s < 2 ? 2 : s > 4 ? 4 : s;
+}
+
+// NV = D / 128: the contiguous columns a thread holds.  Shared memory: a
+// ring of bwd_stages() rows of dout, x and y with their mean and rstd.  At
+// most 64 registers, so 8 blocks fit an SM.  The row's divisions are done
+// by every lane and then selected, never behind a branch on the mask: a
+// divergent branch around each exact division made the row loop issue
+// bound.
+template <typename T, int NV>
+__global__ void __launch_bounds__(kBwdThreads, 8)
     ln_bwd(const T* __restrict__ dout, const T* __restrict__ x,
            const T* __restrict__ y, const float* __restrict__ scale,
            const float* __restrict__ mean_in, const float* __restrict__ rstd_in,
            T* __restrict__ dx, T* __restrict__ dy, float* __restrict__ ds_part,
-           float* __restrict__ db_part, int rows, int D, uint32_t w0,
-           uint32_t w1, uint32_t thresh, float keep_y, float keep_g) {
-  __shared__ float red_s[kWarps][kMaxNJ * 128];
-  __shared__ float red_b[kWarps][kMaxNJ * 128];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  float acc_s[NJ][4], acc_b[NJ][4];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_s[j][e] = acc_b[j][e] = 0.f;
+           float* __restrict__ db_part, int rows, uint32_t w0, uint32_t w1,
+           uint32_t thresh, float keep_y, float keep_g) {
+  constexpr int D = NV * kBwdThreads;
+  constexpr int S = bwd_stages<T, D>();
+  constexpr int kPieces = D * (int)sizeof(T) / 16;  // of a row of one tensor
+  __shared__ __align__(16) T stage[S][3][D];
+  __shared__ float stat[S][2];  // the staged rows' mean and rstd
+  __shared__ float2 red[kBwdThreads / 32];
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int col0 = tid * NV;
+  const int stride = gridDim.x;
 
-  for (int row = blockIdx.x * kWarps + warp; row < rows;
-       row += gridDim.x * kWarps) {
-    float xhat[NJ][4], g[NJ][4];
-    float unused = 0.f;
-    const uint32_t keep_bits = residual<T, NJ>(x, y, row, D, lane, w0, w1,
-                                               thresh, keep_y, xhat, &unused);
-    const float mean = mean_in[row];
-    const float rstd = rstd_in[row];
-    const size_t base = (size_t)row * D;
-    float d1 = 0.f, d2 = 0.f;
+  // Stage `row` into slot st: 16-byte pieces of dout, x and y (a fixed
+  // count a thread, unrolled), and its mean and rstd (4-byte copies).  One
+  // commit group per call, even empty.
+  auto issue = [&](int row, int st) {
+    if (row < rows) {
+      const size_t base = (size_t)row * D;
+      const T* src[3] = {dout + base, x + base, y + base};
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = (lane + 32 * j) * 4;
-      float dov[4];
-      load4(dout + base + c, dov);
-      const float4 s4 = *reinterpret_cast<const float4*>(scale + c);
-      const float s[4] = {s4.x, s4.y, s4.z, s4.w};
+      for (int a = 0; a < 3; ++a) {
+        unsigned char* dst = reinterpret_cast<unsigned char*>(stage[st][a]);
+        const unsigned char* from =
+            reinterpret_cast<const unsigned char*>(src[a]);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        xhat[j][e] = (xhat[j][e] - mean) * rstd;
-        acc_s[j][e] += dov[e] * xhat[j][e];
-        acc_b[j][e] += dov[e];
-        g[j][e] = dov[e] * s[e];          // dxhat
-        d1 += g[j][e];
-        d2 += g[j][e] * xhat[j][e];
+        for (int k = 0; k < kPieces / kBwdThreads; ++k) {
+          const int pc = tid + k * kBwdThreads;
+          cp_async16(dst + pc * 16, from + pc * 16, 16);
+        }
+        constexpr int kRest = kPieces % kBwdThreads;
+        if (kRest && tid < kRest) {
+          const int pc = kPieces - kRest + tid;
+          cp_async16(dst + pc * 16, from + pc * 16, 16);
+        }
+      }
+      if (tid < 2)
+        cp_async4(&stat[st][tid], (tid ? rstd_in : mean_in) + row, 4);
+    }
+    cp_commit();
+  };
+
+  float acc_s[NV], acc_b[NV];
+#pragma unroll
+  for (int e = 0; e < NV; ++e) acc_s[e] = acc_b[e] = 0.f;
+
+#pragma unroll
+  for (int k = 0; k < S - 1; ++k) issue(blockIdx.x + k * stride, k);
+  // ln_sum_parts may launch now: it waits for this grid before reading
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  int row = blockIdx.x;
+  for (int it = 0; row < rows; ++it, row += stride) {
+    const int st = it % S;
+    cp_wait<S - 2>();  // this row's copies (later rows' may fly on)
+    // this row is visible to all, and every thread is done with the last
+    // one, whose slot takes row it + S - 1
+    __syncthreads();
+    issue(row + (S - 1) * stride, (it + S - 1) % S);
+    const float mean = stat[st][0], rstd = stat[st][1];
+    // scale is re-read from L1 every row, not held in 8 registers
+    float s[NV], dov[NV], xv[NV], yv[NV];
+    load_run<float, NV>(scale + col0, s);
+    load_run<T, NV>(stage[st][0] + col0, dov);
+    load_run<T, NV>(stage[st][1] + col0, xv);
+    load_run<T, NV>(stage[st][2] + col0, yv);
+    uint32_t keep_bits = 0;
+    float xhat[NV], d1 = 0.f, d2 = 0.f;
+#pragma unroll
+    for (int e = 0; e < NV; ++e) {
+      float yd = yv[e];
+      if (thresh) {
+        const uint32_t flat = (uint32_t)row * (uint32_t)D + (uint32_t)(col0 + e);
+        const bool keep = hash_mix(hash_mix(flat, w0), w1) < thresh;
+        // every lane divides, then selects: no branch that splits the warp
+        const float kept = round_to<T>(yv[e] / keep_y);
+        yd = keep ? kept : 0.f;
+        keep_bits |= (uint32_t)keep << e;
+      }
+      xhat[e] = (xv[e] + yd - mean) * rstd;
+      acc_s[e] += dov[e] * xhat[e];
+      acc_b[e] += dov[e];
+      const float g = dov[e] * s[e];  // dxhat
+      d1 += g;
+      d2 += g * xhat[e];
+    }
+    d1 = warp_sum(d1);
+    d2 = warp_sum(d2);
+    if ((tid & 31) == 0) red[warp] = make_float2(d1, d2);
+    __syncthreads();
+    d1 = d2 = 0.f;
+#pragma unroll
+    for (int w = 0; w < kBwdThreads / 32; ++w) {
+      d1 += red[w].x;
+      d2 += red[w].y;
+    }
+    d1 /= (float)D;
+    d2 /= (float)D;
+    // dxhat again from the staged dout and scale, not held across the
+    // barrier: 8 registers fewer under the 64 a thread may use
+    load_run<float, NV>(scale + col0, s);
+    load_run<T, NV>(stage[st][0] + col0, dov);
+    float gx[NV], gy[NV];
+#pragma unroll
+    for (int e = 0; e < NV; ++e) {
+      const float dv = rstd * (dov[e] * s[e] - d1 - xhat[e] * d2);
+      gx[e] = dv;
+      gy[e] = dv;
+      if (thresh) {
+        const float kept = dv / keep_g;  // every lane, as above
+        gy[e] = ((keep_bits >> e) & 1u) ? kept : 0.f;
       }
     }
-    d1 = warp_sum(d1) / (float)D;
-    d2 = warp_sum(d2) / (float)D;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = (lane + 32 * j) * 4;
-      float gx[4], gy[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float dv = rstd * (g[j][e] - d1 - xhat[j][e] * d2);
-        gx[e] = dv;
-        gy[e] = !thresh ? dv
-                : ((keep_bits >> (j * 4 + e)) & 1u) ? dv / keep_g : 0.f;
-      }
-      store4(dx + base + c, gx);
-      store4(dy + base + c, gy);
-    }
+    const size_t base = (size_t)row * D + col0;
+    store_run<T, NV>(dx + base, gx);
+    store_run<T, NV>(dy + base, gy);
   }
+  cp_wait<0>();  // no copy may outlive the block
 
+  float* ps = ds_part + (size_t)blockIdx.x * D + col0;
+  float* pb = db_part + (size_t)blockIdx.x * D + col0;
 #pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int c = (lane + 32 * j) * 4 + e;
-      red_s[warp][c] = acc_s[j][e];
-      red_b[warp][c] = acc_b[j][e];
-    }
-  __syncthreads();
-  for (int c = threadIdx.x; c < D; c += blockDim.x) {
-    float s = 0.f, b = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      s += red_s[w][c];
-      b += red_b[w][c];
-    }
-    ds_part[(size_t)blockIdx.x * D + c] = s;
-    db_part[(size_t)blockIdx.x * D + c] = b;
+  for (int e = 0; e < NV; ++e) {
+    ps[e] = acc_s[e];
+    pb[e] = acc_b[e];
   }
 }
 
 // ds = sum over blocks of ds_part, db likewise, in a fixed order: grid
-// (ceil(D / 32), 2), block (32, 8); thread (c, w) sums parts w, w + 8, ...
-// and the 8 sums are added in order.
-__global__ void __launch_bounds__(256)
+// (ceil(D / 32), 2), block (32, 32); thread (c, w) sums parts w, w + 32,
+// ... and the 32 sums are added in order.
+__global__ void __launch_bounds__(1024)
     ln_sum_parts(const float* __restrict__ ds_part,
                  const float* __restrict__ db_part, float* __restrict__ ds,
                  float* __restrict__ db, int parts, int D) {
-  __shared__ float sh[8][32];
+  __shared__ float sh[32][33];
+  // launched early (programmatic dependent launch): wait for ln_bwd's grid
+  // and its writes
+  asm volatile("griddepcontrol.wait;" ::: "memory");
   const float* p = blockIdx.y ? db_part : ds_part;
   const int c = blockIdx.x * 32 + threadIdx.x;
   float s = 0.f;
-  if (c < D)
-    for (int g = threadIdx.y; g < parts; g += 8) s += p[(size_t)g * D + c];
+  if (c < D) {
+#pragma unroll 8
+    for (int g = threadIdx.y; g < parts; g += 32) s += p[(size_t)g * D + c];
+  }
   sh[threadIdx.y][threadIdx.x] = s;
   __syncthreads();
   if (threadIdx.y == 0 && c < D) {
     float t = 0.f;
 #pragma unroll
-    for (int w = 0; w < 8; ++w) t += sh[w][threadIdx.x];
+    for (int w = 0; w < 32; ++w) t += sh[w][threadIdx.x];
     (blockIdx.y ? db : ds)[c] = t;
   }
 }
@@ -297,35 +447,42 @@ cudaError_t fwd(const void* x, const void* y, const void* scale,
   return cudaGetLastError();
 }
 
-int bwd_blocks(int rows) {
-  const int need = (rows + kWarps - 1) / kWarps;
-  return need < kBwdBlocks ? need : kBwdBlocks;
-}
-
 template <typename T>
 cudaError_t bwd(const void* dout, const void* x, const void* y,
                 const void* scale, const void* mean, const void* rstd,
                 void* dx, void* dy, void* ds_part, void* db_part, void* ds,
-                void* db, int rows, int D, uint32_t w0, uint32_t w1,
-                uint32_t thresh, float keep_y, float keep_g,
+                void* db, int rows, int D, int parts, uint32_t w0,
+                uint32_t w1, uint32_t thresh, float keep_y, float keep_g,
                 cudaStream_t s) {
-  const int parts = bwd_blocks(rows);
-  const dim3 grid(parts), block(kWarps * 32);
 #define HETU_LN_BWD(N)                                                      \
-  ln_bwd<T, N><<<grid, block, 0, s>>>(                                      \
+  ln_bwd<T, N><<<parts, kBwdThreads, 0, s>>>(                               \
       static_cast<const T*>(dout), static_cast<const T*>(x),                \
       static_cast<const T*>(y), static_cast<const float*>(scale),           \
       static_cast<const float*>(mean), static_cast<const float*>(rstd),     \
       static_cast<T*>(dx), static_cast<T*>(dy),                             \
-      static_cast<float*>(ds_part), static_cast<float*>(db_part), rows, D,  \
-      w0, w1, thresh, keep_y, keep_g)
+      static_cast<float*>(ds_part), static_cast<float*>(db_part), rows, w0, \
+      w1, thresh, keep_y, keep_g)
   HETU_LN_SWITCH(D / 128, HETU_LN_BWD)
 #undef HETU_LN_BWD
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ln_sum_parts<<<dim3((D + 31) / 32, 2), dim3(32, 8), 0, s>>>(
-      static_cast<const float*>(ds_part), static_cast<const float*>(db_part),
-      static_cast<float*>(ds), static_cast<float*>(db), parts, D);
+  // ln_sum_parts launches while ln_bwd runs (programmatic dependent launch)
+  // and waits for it on the device
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((D + 31) / 32, 2);
+  cfg.blockDim = dim3(32, 32);
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, ln_sum_parts,
+                           static_cast<const float*>(ds_part),
+                           static_cast<const float*>(db_part),
+                           static_cast<float*>(ds), static_cast<float*>(db),
+                           parts, D);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -334,10 +491,6 @@ bool shape_ok(int rows, int D) {
 }
 
 }  // namespace
-
-// The number of (D,) partial rows the backward writes for `rows` rows: the
-// size of ds_part and db_part is that times D floats.
-extern "C" int hetu_fused_ln_parts(int rows) { return bwd_blocks(rows); }
 
 // The widest D the kernels take (a multiple of 128 up to it).
 extern "C" int hetu_fused_ln_max_d(void) { return kMaxNJ * 128; }
@@ -365,26 +518,28 @@ extern "C" int hetu_fused_ln_fwd(int dtype, const void* x, const void* y,
 }
 
 // Gradients from dout (rows, D) and the forward's mean and rstd: dx, dy
-// (rows, D) in the inputs' type, ds and db (D,) float32.  ds_part and
-// db_part are hetu_fused_ln_parts(rows) * D float32 scratch; keep_g is the
-// keep probability in fp32.  Two launches on the stream.  Returns
-// cudaGetLastError().
+// (rows, D) in the inputs' type, ds and db (D,) float32.  `parts` blocks
+// (1 <= parts <= rows) each write one (D,) partial: ds_part and db_part are
+// parts * D float32 scratch.  keep_g is the keep probability in fp32.  Two
+// launches on the stream.  Returns cudaGetLastError().
 extern "C" int hetu_fused_ln_bwd(int dtype, const void* dout, const void* x,
                                  const void* y, const void* scale,
                                  const void* mean, const void* rstd, void* dx,
                                  void* dy, void* ds_part, void* db_part,
                                  void* ds, void* db, int rows, int D,
-                                 uint32_t w0, uint32_t w1, uint32_t thresh,
-                                 float keep_y, float keep_g, void* stream) {
-  if (!shape_ok(rows, D)) return (int)cudaErrorInvalidValue;
+                                 int parts, uint32_t w0, uint32_t w1,
+                                 uint32_t thresh, float keep_y, float keep_g,
+                                 void* stream) {
+  if (!shape_ok(rows, D) || parts < 1 || parts > rows)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)bwd<float>(dout, x, y, scale, mean, rstd, dx, dy, ds_part,
-                           db_part, ds, db, rows, D, w0, w1, thresh, keep_y,
-                           keep_g, s);
+                           db_part, ds, db, rows, D, parts, w0, w1, thresh,
+                           keep_y, keep_g, s);
   if (dtype == 1)
     return (int)bwd<__nv_bfloat16>(dout, x, y, scale, mean, rstd, dx, dy,
-                                   ds_part, db_part, ds, db, rows, D, w0, w1,
-                                   thresh, keep_y, keep_g, s);
+                                   ds_part, db_part, ds, db, rows, D, parts,
+                                   w0, w1, thresh, keep_y, keep_g, s);
   return (int)cudaErrorInvalidValue;
 }

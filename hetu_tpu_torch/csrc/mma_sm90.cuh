@@ -1,6 +1,7 @@
-// Device helpers shared by the port's tensor-core kernels (flash_attn.cu,
-// lm_head_ce.cu): fp32 / bf16 conversions, cp.async staging, the TF32
-// split of the 3xTF32 products, mma.sync and ldmatrix.  Everything sits in
+// Device helpers shared by the port's kernels: fp32 / bf16 conversions and
+// cp.async staging (flash_attn.cu, lm_head_ce.cu, paged_decode.cu,
+// fused_ln.cu), the TF32 split of the 3xTF32 products, mma.sync and
+// ldmatrix (the tensor-core kernels).  Everything sits in
 // an anonymous namespace, so each translation unit that includes this
 // header gets its own copy.
 

@@ -126,8 +126,7 @@ def build_log() -> str:
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _U = ctypes.c_uint32
 _SIGNATURES = {
-    "hetu_paged_decode": [_I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
-                          _I, _F, _VP],
+    "hetu_paged_decode": [_I] + [_VP] * 7 + [_I] * 8 + [_F, _VP],
     "hetu_lm_head_sample": [_I, _VP, _VP, _VP, _VP, _F, _I, _I, _I, _I,
                             _VP, _VP, _VP, _VP, _VP],
     "hetu_lm_head_chunk": [],
@@ -140,11 +139,10 @@ _SIGNATURES = {
                     _VP],
     "hetu_ce_bwd": [_I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP,
                     _VP, _VP, _VP, _VP, _VP],
-    "hetu_fused_ln_parts": [_I],
     "hetu_fused_ln_max_d": [],
     "hetu_fused_ln_fwd": [_I] + [_VP] * 7 + [_I, _I, _U, _U, _U, _F, _F, _VP],
-    "hetu_fused_ln_bwd": [_I] + [_VP] * 12 + [_I, _I, _U, _U, _U, _F, _F,
-                                              _VP],
+    "hetu_fused_ln_bwd": [_I] + [_VP] * 12 + [_I, _I, _I, _U, _U, _U, _F,
+                                              _F, _VP],
 }
 
 

@@ -5,9 +5,13 @@ Replaces the Pallas TPU kernels of ``hetu_tpu/ops/pallas/fused_ln.py``:
 the forward ``_ln_fwd`` (``_fwd_kernel``) and the backward ``_ln_bwd``
 (``_bwd_kernel``), entry ``fused_residual_dropout_ln``.  The CUDA kernels
 are ``hetu_tpu_torch/csrc/fused_ln.cu``; its header says what bounds them
-on the H100 (bytes) and how the design deals with it (one warp per row,
-the row in registers, the dropout mask regenerated in both directions and
-never stored).
+on the H100 (bytes) and how the design deals with it (the forward: one
+warp per row, the row in registers; the backward: one row at a time over
+a block of a persistent grid, the next row staged by ``cp.async``; the
+dropout mask regenerated in both directions and never stored).  The
+backward's grid, :func:`bwd_parts`, is a function of the row count
+alone, so its fixed-order dscale / dbias sums do not depend on the
+device.
 
 For ``x, y (T, D)`` and fp32 ``scale, bias (D,)`` the forward gives
 ``out = LN(x + drop(y))`` with fp32 per-row ``mean`` and ``rstd``: ``v =
@@ -36,11 +40,26 @@ from hetu_tpu_torch.ops.nn import _hash_bits, _key_words, dropout_keep_thresh
 
 __all__ = ["fused_residual_dropout_ln", "fused_ln_fwd", "fused_ln_bwd",
            "fused_ln_fwd_plain", "fused_ln_bwd_plain", "FusedResidualLN",
-           "fwd_launch_count", "bwd_launch_count", "reset_launch_count"]
+           "bwd_parts", "fwd_launch_count", "bwd_launch_count",
+           "reset_launch_count"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fwd_launches = 0
 _bwd_launches = 0
+
+# Most blocks of the backward's persistent grid: one wave of 8 blocks of
+# 128 threads on each of an H100's 132 SMs.  A constant, not the device's
+# SM count: the partial sums' order must not depend on the card.
+BWD_WAVE = 132 * 8
+
+
+def bwd_parts(T: int) -> int:
+    """Blocks of the backward for ``T`` rows, each summing its rows'
+    dscale / dbias into one ``(D,)`` partial: at most :data:`BWD_WAVE`
+    blocks, each taking at most ``ceil(T / BWD_WAVE)`` rows, and no
+    more blocks than that needs (1024 blocks of 12 rows at T = 12288)."""
+    per = -(-T // BWD_WAVE)
+    return -(-T // per)
 
 
 def fwd_launch_count() -> int:
@@ -180,7 +199,7 @@ def fused_ln_bwd(dout, x2, y2, scale, mean, rstd, *, words=(0, 0),
     T, D = x2.shape[0], x2.shape[-1]
     _check(lib, x2, {"dout": dout, "x": x2, "y": y2},
            {"scale": (scale, D), "mean": (mean, T), "rstd": (rstd, T)})
-    parts = lib.hetu_fused_ln_parts(T)
+    parts = bwd_parts(T)
     part = torch.empty((2, parts, D), dtype=torch.float32, device=x2.device)
     dx = torch.empty_like(x2)
     dy = torch.empty_like(y2)
@@ -189,8 +208,8 @@ def fused_ln_bwd(dout, x2, y2, scale, mean, rstd, *, words=(0, 0),
         _DTYPES[x2.dtype], dout.data_ptr(), x2.data_ptr(), y2.data_ptr(),
         scale.data_ptr(), mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
         dy.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
-        dsb[0].data_ptr(), dsb[1].data_ptr(), T, D, words[0], words[1],
-        thresh, keep_y, keep_g,
+        dsb[0].data_ptr(), dsb[1].data_ptr(), T, D, parts, words[0],
+        words[1], thresh, keep_y, keep_g,
         torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check(err, "fused_ln_bwd")
     _bwd_launches += 1

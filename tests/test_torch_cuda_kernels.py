@@ -10,7 +10,8 @@ imports neither jax nor hetu_tpu, so it runs where JAX is not installed:
     python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py
 
 Tolerances: paged decode fp32 2e-5, bf16 1.6e-2 (one bf16 rounding of
-an output below 2); LM-head values 1e-4 (fp32 accumulation in another
+an output below 2), a row of length 0 NaN, a row alone bitwise the same
+row in a batch; LM-head values 1e-4 (fp32 accumulation in another
 order), indices exactly where the top values are separated by more;
 flash and cross entropy as stated beside each test, relative to the
 largest reference value, and every backward bitwise repeatable."""
@@ -32,35 +33,84 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
-                                       (torch.bfloat16, 1.6e-2)])
-@pytest.mark.parametrize("D,page", [(32, 4), (64, 16), (128, 5), (256, 8)])
-def test_paged_decode_kernel_matches_plain(cuda, dtype, tol, D, page):
-    g = torch.Generator().manual_seed(D + page)
-    lens = [1, page, page + 1, 3 * page + 2, 40]
-    B, H = len(lens), 3
-    pps = max(-(-n // page) for n in lens) + 1
-    P = 1 + sum(-(-n // page) for n in lens)
-    tables = torch.zeros((B, pps), dtype=torch.int32)
+def _paged_case(lens, page, D, dtype, device, H=3, seed=0, layers=2,
+                pps=None):
+    """A stacked pool whose scratch page 0 is NaN, each row's pages handed
+    out in order from page 1, tables ``pps`` pages wide (the longest row
+    plus a page by default) and padded with the scratch page."""
+    g = torch.Generator().manual_seed(seed)
+    need = [-(-n // page) for n in lens]
+    pps = pps or max(need) + 1
+    P = 1 + sum(need)
+    tables = torch.zeros((len(lens), pps), dtype=torch.int32)
     nxt = 1
-    for b, n in enumerate(lens):
-        m = -(-n // page)
+    for b, m in enumerate(need):
         tables[b, :m] = torch.arange(nxt, nxt + m)
         nxt += m
-    k = torch.randn((2, P, page, H, D), generator=g).to(cuda, dtype)
-    v = torch.randn((2, P, page, H, D), generator=g).to(cuda, dtype)
-    q = torch.randn((B, H, D), generator=g).to(cuda, dtype)
+    k = torch.randn((layers, P, page, H, D), generator=g).to(device, dtype)
+    v = torch.randn((layers, P, page, H, D), generator=g).to(device, dtype)
+    q = torch.randn((len(lens), H, D), generator=g).to(device, dtype)
     k[:, 0] = float("nan")
     v[:, 0] = float("nan")
-    args = (q, k, v, tables.to(cuda),
-            torch.tensor(lens, dtype=torch.int32, device=cuda))
+    return (q, k, v, tables.to(device),
+            torch.tensor(lens, dtype=torch.int32, device=device))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 1.6e-2)])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("page", [4, 5, 8, 16])
+def test_paged_decode_kernel_matches_plain(cuda, dtype, tol, D, page):
+    """Lengths at the chunk's edges (C - 1, C, C + 1 for a chunk of C
+    positions), a row filling its whole table, short rows and a row of
+    length 0, which is NaN in both versions."""
+    C = pd.chunk_plan(page, 1)[0] * page
+    lens = [C - 1, C, C + 1, 1, page, 2 * C + 3, 0]
+    pps = max(-(-n // page) for n in lens) + 1
+    lens.append(pps * page)
+    args = _paged_case(lens, page, D, dtype, cuda, seed=D + page, pps=pps)
     before = pd.launch_count()
     out = pd.paged_decode_attention(*args, layer=1)
     ref = pd.paged_decode_attention_plain(*args, layer=1)
     torch.cuda.synchronize()
     assert pd.launch_count() == before + 1
-    assert torch.isfinite(out.float()).all()
-    assert (out.float() - ref.float()).abs().max().item() <= tol
+    dead = torch.tensor([n == 0 for n in lens], device=cuda)
+    assert torch.isnan(out[dead].float()).all()
+    assert torch.isnan(ref[dead].float()).all()
+    assert torch.isfinite(out[~dead].float()).all()
+    assert (out[~dead].float() - ref[~dead].float()).abs().max().item() <= tol
+    again = pd.paged_decode_attention(*args, layer=1)
+    assert torch.equal(again[~dead], out[~dead])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,page", [(64, 16), (128, 5)])
+def test_paged_decode_row_alone_equals_row_in_batch(cuda, dtype, D, page):
+    """A row's chunk plan depends on the page size alone, so each row of
+    a batch of 8 is bitwise the same row served alone."""
+    lens = [1, 17, 64, 65, 200, 513, 1000, 1024]
+    q, k, v, tables, sl = _paged_case(lens, page, D, dtype, cuda, H=4,
+                                      seed=3)
+    out = pd.paged_decode_attention(q, k, v, tables, sl, layer=0)
+    for b in range(len(lens)):
+        alone = pd.paged_decode_attention(
+            q[b:b + 1].contiguous(), k, v, tables[b:b + 1].contiguous(),
+            sl[b:b + 1].contiguous(), layer=0)
+        assert torch.equal(alone[0], out[b]), f"row {b} (length {lens[b]})"
+
+
+def test_paged_decode_refuses_misaligned_pool(cuda):
+    """The kernel stages rows by 16-byte copies: a pool that starts 4
+    bytes into its storage is refused before any launch."""
+    q, k, v, tables, sl = _paged_case([5, 9], 4, 32, torch.float32, cuda)
+    bad = torch.empty(k.numel() + 1, device=cuda)[1:].view(k.shape)
+    bad.copy_(k)
+    assert bad.is_contiguous() and bad.data_ptr() % 16
+    before = pd.launch_count()
+    for kk, vv in ((bad, v), (k, bad)):
+        with pytest.raises(ValueError, match="16-byte"):
+            pd.paged_decode_attention(q, kk, vv, tables, sl, layer=1)
+    assert pd.launch_count() == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -314,7 +364,9 @@ FLN_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (8e-3, 8e-3)}
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("T,D", [(1, 128), (91, 768), (2049, 1024),
-                                 (12288, 1024)])
+                                 (12288, 1024),
+                                 # a partial last round of the grid
+                                 (4001, 1024), (1057, 384)])
 def test_fused_ln_kernels_match_plain(cuda, dtype, rate, T, D):
     from hetu_tpu_torch.ops.kernels import fused_ln as fln
     g = torch.Generator().manual_seed(T + D)

@@ -1,13 +1,16 @@
 """The plain version of the port's fused residual + dropout + LayerNorm
 against the JAX package's Pallas kernels in interpret mode, on the CPU:
 rates 0, 0.1 and 0.5, D = 128 with a ragged T (7 x 13 rows), fp32 and
-bf16, the same inputs from a numpy seed and the same key.
+bf16, the same inputs from a numpy seed and the same key; and the CUDA
+backward's grid size, a pure function of the row count.
 
 Tolerances: fp32 forward within 1e-6 of the largest output (sums in
 another order), the kept/dropped pattern bitwise (the zeros of dy where
 dx is not 0), gradients within 2e-4 of each gradient's largest value;
 bf16 outputs and gradients within one bf16 spacing (both round fp32
 results once), dscale/dbias (fp32 in both) within 2e-4."""
+
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +21,7 @@ import torch
 from hetu_tpu.ops.pallas.fused_ln import (
     fused_residual_dropout_ln as jax_fused)
 from hetu_tpu_torch.core import prng
+from hetu_tpu_torch.ops.kernels import fused_ln as fln
 from hetu_tpu_torch.ops.kernels.fused_ln import fused_residual_dropout_ln
 from hetu_tpu_torch.ops.nn import dropout, layer_norm
 
@@ -127,3 +131,23 @@ def test_fused_site_equals_dropout_then_layer_norm_in_fp32():
     fused = fused_residual_dropout_ln(x, y, s, b, rate=0.1, key=k)
     composed = layer_norm(x + dropout(y, 0.1, k), s, b)
     assert (fused - composed).abs().max() <= 1e-6 * composed.abs().max()
+
+
+@pytest.mark.parametrize("T", [1, 2, 91, 1055, 1056, 1057, 2049, 4001,
+                               12288, 100000])
+def test_bwd_parts_depends_on_rows_alone(T):
+    """The backward's persistent grid: one (D,) dscale / dbias partial a
+    block, summed in a fixed order.  Its only input is the row count,
+    so the sums' order cannot depend on the device or its SM count;
+    every block gets a row, none gets more than ceil(T / BWD_WAVE)."""
+    assert list(inspect.signature(fln.bwd_parts).parameters) == ["T"]
+    parts = fln.bwd_parts(T)
+    per = -(-T // fln.BWD_WAVE)
+    assert 1 <= parts <= min(T, fln.BWD_WAVE)
+    assert -(-T // parts) <= per           # rows of the busiest block
+    assert (parts - 1) * per < T           # no more blocks than it needs
+    assert fln.bwd_parts(T) == parts
+
+
+def test_bwd_parts_at_the_bert_large_shape():
+    assert fln.bwd_parts(96 * 128) == 1024

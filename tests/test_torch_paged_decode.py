@@ -1,7 +1,12 @@
 """Paged decode attention in the PyTorch port: its plain version (what a
 CPU tensor runs) against the JAX package's Pallas kernel in interpret
-mode, on the same numpy inputs.  Tolerance: fp32, atol 1e-5 (both take
-fp32 statistics; they differ only in summation order)."""
+mode, on the same numpy inputs, a row of length 0 (NaN in both) among
+them; the CUDA kernel's chunk plan and head groups, which are pure
+functions of the shapes.  Tolerance: fp32, atol 1e-5 (both take fp32
+statistics; they differ only in summation order)."""
+
+import inspect
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -106,3 +111,68 @@ def test_stacked_pool_without_layer_raises():
     q, k, v, tables, lens = _setup([4], layers=2)
     with pytest.raises(ValueError, match="layer"):
         _port(q, k, v, tables, lens)
+
+
+def _pre_fix_plain(q, k, v, tables, lens):
+    """The plain version as it was before a length-0 row became NaN:
+    rows of length 1 or more must keep these bits."""
+    q, k, v = (torch.from_numpy(a) for a in (q, k, v))
+    tables, lens = torch.from_numpy(tables), torch.from_numpy(lens)
+    B, H, D = q.shape
+    P, page = tables.shape[1], k.shape[1]
+    kk = k[tables.long()].reshape(B, P * page, H, D).float()
+    vv = v[tables.long()].reshape(B, P * page, H, D).float()
+    live = torch.arange(P * page)[None, :] < lens.long()[:, None]
+    s = torch.einsum("bhd,bshd->bhs", q.float(), kk) * (1.0 / math.sqrt(D))
+    s = torch.where(live[:, None, :], s, torch.full_like(s, -1e30))
+    vv = torch.where(live[:, :, None, None], vv, torch.zeros_like(vv))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhs,bshd->bhd", p, vv).to(q.dtype).numpy()
+
+
+@pytest.mark.parametrize("lens", [[0, 5], [3, 0, 9, 0], [0]])
+def test_length_zero_row_is_nan_as_in_pallas(lens):
+    """A row of length 0 attends to nothing: the Pallas kernel gives 0 / 0
+    = NaN there, and so does the plain version; the live rows agree
+    within ATOL and keep the bits they had before the fix."""
+    args = _setup([max(n, 1) for n in lens], H=2, D=32, page=4, seed=7)
+    args = args[:4] + (np.asarray(lens, np.int32),)
+    ours, ref = _port(*args), _jax(*args)
+    dead = np.asarray(lens) == 0
+    assert np.isnan(ref[dead]).all() and np.isnan(ours[dead]).all()
+    assert np.isfinite(ours[~dead]).all()
+    np.testing.assert_allclose(ours[~dead], ref[~dead], rtol=0, atol=ATOL)
+    np.testing.assert_array_equal(ours[~dead], _pre_fix_plain(*args)[~dead])
+
+
+def test_rows_of_length_one_or_more_keep_their_bits():
+    args = _setup([1, 4, 5, 16, 13], H=3, D=64, page=4, seed=11)
+    np.testing.assert_array_equal(_port(*args), _pre_fix_plain(*args))
+
+
+@pytest.mark.parametrize("page", [1, 4, 5, 8, 16, 63, 64, 65, 256])
+@pytest.mark.parametrize("pages_per_seq", [1, 3, 64, 1000])
+def test_chunk_plan_depends_on_page_and_table_width_alone(page,
+                                                          pages_per_seq):
+    """The kernel's split of a row: whole pages, at least CHUNK_POSITIONS
+    positions (or the whole page), and just enough chunks to cover the
+    table.  Its only inputs are the page size and the table width, so a
+    row's chunks (and bits) cannot depend on the batch size, the other
+    rows' lengths or the device."""
+    assert list(inspect.signature(pd.chunk_plan).parameters) == [
+        "page", "pages_per_seq"]
+    chunk_pages, n_chunks = pd.chunk_plan(page, pages_per_seq)
+    assert chunk_pages >= 1 and n_chunks >= 1
+    assert chunk_pages * page >= pd.CHUNK_POSITIONS
+    assert (chunk_pages - 1) * page < pd.CHUNK_POSITIONS
+    assert n_chunks * chunk_pages >= pages_per_seq
+    assert (n_chunks - 1) * chunk_pages < pages_per_seq
+    assert pd.chunk_plan(page, pages_per_seq) == (chunk_pages, n_chunks)
+
+
+@pytest.mark.parametrize("H,D,itemsize,want", [
+    (12, 64, 4, 2), (12, 64, 2, 4), (12, 32, 4, 4), (12, 32, 2, 8),
+    (12, 128, 4, 1), (12, 256, 4, 1), (12, 256, 2, 1), (1, 32, 2, 1),
+    (3, 32, 2, 3), (16, 32, 2, 8)])
+def test_heads_per_block(H, D, itemsize, want):
+    assert pd.heads_per_block(H, D, itemsize) == want
