@@ -15,7 +15,9 @@ where it happened; any failure exits non-zero:
    the shapes its main path gives it (fp32 and bf16; the paged pool's
    scratch page poisoned with NaN, a length-0 row NaN, the length-1024
    row served alone bitwise the same as in the batch, and paged decode
-   timed again at the lengths phase 4's 126 decode steps reach; flash at
+   timed again at the lengths phase 4's 126 decode steps reach; LM-head
+   sampling at N=8 E=768 V=50257, k 1 and 5, plus rows of NaN, +inf and
+   -inf logits whose indices must equal the plain version's; flash at
    B=8 H=12 S=1024 D=64 causal
    and at a ragged S=1000; the LM-head cross entropy at N=8184 E=768
    V=50257 with ignored labels and a bias, and at GPT-2 XL's width
@@ -71,9 +73,10 @@ and of the flash forward fed q, k and v, rounded to TF32: controls that
 must fail the fp32 limits (a kernel that ran one-pass TF32 products
 would).  Phase 8 prints each flash kernel's time beside the prediction
 made before its tensor-core redesign first ran, and likewise paged
-decode's and the fused-LN backward's beside their predictions and their
-times before their redesign, and paged decode's device time over phase
-4's run at phase 4's lengths.
+decode's, the fused-LN backward's and LM-head sampling's beside their
+predictions and their times before their redesign, and paged decode's
+device time over phase 4's run at phase 4's lengths.  Phase 4's decode
+profile prints the sampling kernels' busy time per step.
 
 Without a CUDA device the script prints no result and exits 2.
 """
@@ -335,17 +338,58 @@ def check_lm_head(lh, flush, dtype, k, gen):
           f"{int(mism.sum())}")
     assert err <= tol, f"lm_head_sample {dtype} k={k}: {err} > {tol}"
     assert not mism.any(), "lm_head_sample: index mismatch beyond a tie"
+    check_lm_head_order(lh, h, w, k)
     s = torch.finfo(dtype).bits // 8
     nbytes = V * E * s + N * E * s + N * k * 8
     b_ms, b_by = bound(nbytes, 2 * N * E * V, dtype)
     ms = time_ms(lambda: lh.lm_head_sample(h, w, k=k), flush)
     plain_ms = time_ms(lambda: lh.lm_head_sample_plain(h, w, k=k), flush)
     lib_ms = time_ms(lambda: torch.topk(h @ w.T, k), flush)
+    # one plain read of W, timed the same way: the flush leaves the L2
+    # full of dirty lines, written back while the next call reads
+    read_ms = time_ms(lambda: w.sum(), flush)
     print(f"lm_head_sample {dtype} k={k}: kernel_ms {ms:.4f} plain_ms "
           f"{plain_ms:.4f} library_ms {lib_ms:.4f} bound_ms {b_ms:.4f} "
-          f"({b_by}, {nbytes} bytes)")
+          f"({b_by}, {nbytes} bytes); w.sum() {read_ms:.4f} ms")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def check_lm_head_order(lh, h, w, k):
+    """NaN, +inf and -inf logits: where the plain top values are not
+    finite, the kernel's indices must be the plain version's exactly (a
+    NaN of either sign first, the first NaN first), and a row of NaN or
+    of -inf gives 0, 1, ..., k - 1.  Three rows join the batch: one whose
+    h is NaN, one whose Gumbel field is NaN at columns 7 and 20000 (two
+    blocks apart) and +inf at 30000, one whose field is -inf; the eight
+    rows keep a zero field.  A second call puts NaN at 7 and 25000 and
+    +inf at 50000 through the bias, in every row."""
+    N, V = h.shape[0], w.shape[0]
+    nan, inf = float("nan"), float("inf")
+    hx = torch.cat([h, torch.full_like(h[:1], nan), h[:2]])
+    gx = torch.zeros((N + 3, V), device=h.device)
+    gx[N + 1, [7, 20000]] = nan
+    gx[N + 1, 30000] = inf
+    gx[N + 2] = -inf
+    bias = torch.zeros(V, device=h.device)
+    bias[[7, 25000]] = nan
+    bias[50000] = inf
+    checked = 0
+    for hh, kw, all_first in ((hx, {"gumbel": gx}, (N, N + 2)),
+                              (h, {"bias": bias}, ())):
+        vals, idx = lh.lm_head_sample(hh, w, k=k, **kw)
+        pv, pi = lh.lm_head_sample_plain(hh, w, k=k, **kw)
+        torch.cuda.synchronize()
+        special = ~torch.isfinite(pv)
+        assert torch.equal(idx[special], pi[special]), \
+            "lm_head_sample: indices differ on NaN / inf logits"
+        assert torch.equal(torch.isnan(vals), torch.isnan(pv))
+        for r in all_first:
+            assert idx[r].tolist() == list(range(k)), \
+                f"lm_head_sample: row {r} of NaN / -inf gave {idx[r]}"
+        checked += int(special.sum())
+    print(f"lm_head_sample {w.dtype} k={k}: NaN / inf rows: {checked} "
+          f"non-finite top entries, indices equal to the plain version's")
 
 
 def rel_err(x, ref):
@@ -360,7 +404,8 @@ def rel_err(x, ref):
 # before).  PR 6's flash kernels at (8, 12, 1024, 64) causal, the ring's
 # block kernels per launch at (8, 12, 256, 64), a causal sp=4 layer's
 # mean; PR 7's paged decode at B=8 H=12 D=64 page 16, lengths 1..1024,
-# and fused-LN backward at T=12288 D=1024.
+# and fused-LN backward at T=12288 D=1024; the LM-head sampling kernel's
+# at N=8 E=768 V=50257 k=1.
 PREDICTED_MS = {
     ("flash_fwd", torch.float32): (0.20, 0.40, 0.6654),
     ("flash_bwd", torch.float32): (0.7, 1.4, 2.0543),
@@ -372,6 +417,8 @@ PREDICTED_MS = {
     ("paged_decode_attention", torch.bfloat16): (0.008, 0.020, None),
     ("fused_ln_bwd", torch.bfloat16): (0.045, 0.075, 0.1553),
     ("fused_ln_bwd", torch.float32): (0.085, 0.12, 0.1636),
+    ("lm_head_sample", torch.float32): (0.050, 0.075, 0.1106),
+    ("lm_head_sample", torch.bfloat16): (0.027, 0.050, 0.1247),
 }
 
 
@@ -1421,6 +1468,12 @@ def profile_decode(make_engine, prompts, steps=10):
     for key, us, n in sorted(rows, key=lambda r: -r[1])[:8]:
         print(f"  {us / 1e3 / steps:8.4f} ms/step  {n // steps:4d} "
               f"launches/step  {key[:90]}")
+    # the merge is a programmatic dependent: count the union of the two
+    # kernels' intervals, not their summed durations
+    sample = [sp[1:] for sp in device_spans(prof) if "head_topk_" in sp[0]]
+    print(f"LM-head sampling (head_topk_partial + head_topk_merge): "
+          f"{union_ms(sample) / steps:.4f} ms per step busy, "
+          f"{len(sample) // steps} launches per step")
 
 
 def main() -> int:
@@ -1668,7 +1721,13 @@ def main() -> int:
         ("paged_decode_attention", f32): pd_rows[f32],
         ("paged_decode_attention", bf16): pd_rows[bf16],
         ("fused_ln_bwd", f32): fln_rows[f32][1],
-        ("fused_ln_bwd", bf16): fln_rows[bf16][1]})
+        ("fused_ln_bwd", bf16): fln_rows[bf16][1],
+        ("lm_head_sample", f32): lm_rows[(f32, 1)],
+        ("lm_head_sample", bf16): lm_rows[(bf16, 1)]})
+    for dt in (f32, bf16):
+        one, five = lm_rows[(dt, 1)]["ms"], lm_rows[(dt, 5)]["ms"]
+        print(f"prediction: lm_head_sample {dt} k=5 {five:.4f} ms, "
+              f"{five / one - 1:+.1%} over k=1 (predicted within 15%)")
     r = pd_rows[f32]
     n = launches["paged_decode_attention"]
     print(f"paged_decode over phase 4's run: {n} launches x "

@@ -128,8 +128,8 @@ _U = ctypes.c_uint32
 _SIGNATURES = {
     "hetu_paged_decode": [_I] + [_VP] * 7 + [_I] * 8 + [_F, _VP],
     "hetu_lm_head_sample": [_I, _VP, _VP, _VP, _VP, _F, _I, _I, _I, _I,
-                            _VP, _VP, _VP, _VP, _VP],
-    "hetu_lm_head_chunk": [],
+                            _I, _VP, _VP, _VP, _VP, _VP],
+    "hetu_lm_head_blocks": [_I, _I, _I],
     "hetu_flash_fwd": [_I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
                        _F, _VP],
     "hetu_flash_bwd": [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,

@@ -5,18 +5,24 @@ Replaces the Pallas TPU kernel ``hetu_tpu/ops/pallas/lm_head.py``
 (``_sample_kernel``, entry ``lm_head_sample_pallas``).  The CUDA kernel is
 ``hetu_tpu_torch/csrc/lm_head_sample.cu``; its header says what bounds it
 on the H100 (memory: the whole weight is streamed once per call at
-decode batch sizes) and how the design deals with it (W read in its
-``(V, E)`` embedding layout with coalesced rows, a parallel per-chunk
-top-k, then a deterministic merge pass; the logits never reach device
-memory).
+decode batch sizes) and how the design deals with it (one wave of
+blocks streams W in its ``(V, E)`` embedding layout through a
+``cp.async`` ring into ``mma.sync`` tensor-core tiles, each block keeps
+its range's top-k, and a merge launched as a programmatic dependent
+takes each row's; the logits never reach device memory).
 
 The function is the TPU kernel's: the top-k ``(vals, idx)`` of each row
 of ``h @ W^T (+ b)``, or of ``g + (h @ W^T + b) / T`` when a Gumbel field
-``g`` is given, descending by value with the smallest index first among
-equal values (``lax.top_k``'s order).  h is cast to W's type first and
-the products accumulate in fp32.  ``k = 1`` is greedy decoding, which is
-all the serving engine asks of it; ``g`` and ``T`` are there so the
-whole function is ported.
+``g`` is given, in one order on every path: any NaN, whatever its sign
+bit, above every number (``jnp.argmax`` returns the first NaN); then the
+values descending, with -0.0 equal to +0.0; equal values, and NaNs among
+themselves, smallest index first.  A row of -inf gives index 0, and so
+does a row of NaN.  That is ``lax.top_k``'s order except in two corners
+where ``lax.top_k`` sorts by total order (+0.0 above -0.0, a NaN with its
+sign bit set below -inf) and ``jnp.argmax`` does not.  h is cast to W's
+type first and the products accumulate in fp32.  ``k = 1`` is greedy
+decoding, which is all the serving engine asks of it; ``g`` and ``T``
+are there so the whole function is ported.
 
 :func:`lm_head_sample` runs :func:`lm_head_sample_plain` only when its
 inputs lie on the CPU.  For CUDA tensors it launches the kernel or
@@ -36,6 +42,7 @@ __all__ = ["lm_head_sample", "lm_head_sample_plain", "lm_head_greedy",
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_K = 128
 _launches = 0
+_block_counts = {}
 
 
 def launch_count() -> int:
@@ -48,6 +55,21 @@ def reset_launch_count() -> None:
     _launches = 0
 
 
+def _blocks(lib, dtype: int, E: int, V: int, device) -> int:
+    """The kernel's block count for (type, E, V) on ``device``: one wave
+    of the card, which sizes the ``(N, G, k)`` candidate scratch."""
+    key = (dtype, E, V, device.index)
+    if key not in _block_counts:
+        with torch.cuda.device(device):
+            G = lib.hetu_lm_head_blocks(dtype, E, V)
+        if G < 1:
+            raise ValueError(f"lm_head_sample: E={E} is too wide for the "
+                             f"kernel (h's rows stay in shared memory: at "
+                             f"most 2368 in float32, 4736 in bfloat16)")
+        _block_counts[key] = G
+    return _block_counts[key]
+
+
 def _check_k(k: int, V: int) -> int:
     k = int(k)
     if not 1 <= k <= min(_MAX_K, V):
@@ -58,7 +80,9 @@ def _check_k(k: int, V: int) -> int:
 def lm_head_sample_plain(hidden, weight, *, k: int = 1, bias=None,
                          gumbel=None, temperature: float = 1.0):
     """The same function in plain PyTorch: fp32 logits, then a stable
-    descending sort (equal values keep ascending index order)."""
+    descending sort.  ``torch.sort`` ranks every NaN above every number
+    and compares -0.0 equal to +0.0, and the stable sort keeps equal
+    values in ascending index order: the module's order."""
     k = _check_k(k, weight.shape[0])
     lg = (hidden.to(weight.dtype).float() @ weight.float().T)
     if bias is not None:
@@ -109,19 +133,16 @@ def lm_head_sample(hidden, weight, *, k: int = 1, bias=None, gumbel=None,
     if gumbel is not None and (gumbel.dtype != torch.float32
                                or tuple(gumbel.shape) != (N, V)):
         raise ValueError("gumbel must be float32 of shape (N, V)")
-    chunk = lib.hetu_lm_head_chunk()
-    n_chunks = -(-V // chunk)
-    part_v = torch.empty((N, n_chunks, k), dtype=torch.float32,
-                         device=h.device)
-    part_i = torch.empty((N, n_chunks, k), dtype=torch.int32,
-                         device=h.device)
+    G = _blocks(lib, _DTYPES[weight.dtype], E, V, h.device)
+    part_v = torch.empty((N, G, k), dtype=torch.float32, device=h.device)
+    part_i = torch.empty((N, G, k), dtype=torch.int32, device=h.device)
     vals = torch.empty((N, k), dtype=torch.float32, device=h.device)
     idx = torch.empty((N, k), dtype=torch.int32, device=h.device)
     err = lib.hetu_lm_head_sample(
         _DTYPES[weight.dtype], h.data_ptr(), weight.data_ptr(),
         None if bias is None else bias.data_ptr(),
         None if gumbel is None else gumbel.data_ptr(),
-        float(temperature), N, E, V, k, part_v.data_ptr(),
+        float(temperature), N, E, V, k, G, part_v.data_ptr(),
         part_i.data_ptr(), vals.data_ptr(), idx.data_ptr(),
         torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(err, "lm_head_sample")

@@ -12,7 +12,8 @@ imports neither jax nor hetu_tpu, so it runs where JAX is not installed:
 Tolerances: paged decode fp32 2e-5, bf16 1.6e-2 (one bf16 rounding of
 an output below 2), a row of length 0 NaN, a row alone bitwise the same
 row in a batch; LM-head values 1e-4 (fp32 accumulation in another
-order), indices exactly where the top values are separated by more;
+order), indices exactly where the top values are separated by more and
+where they are NaN or +-inf, a row alone bitwise the same row in a batch;
 flash and cross entropy as stated beside each test, relative to the
 largest reference value, and every backward bitwise repeatable."""
 
@@ -115,8 +116,11 @@ def test_paged_decode_refuses_misaligned_pool(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("N,E,V,k", [(1, 64, 100, 1), (8, 768, 5000, 5),
-                                     (11, 96, 1031, 128), (3, 32, 129, 129)])
+                                     (11, 96, 1031, 128), (3, 32, 129, 129),
+                                     (5, 50, 777, 3), (2, 1600, 3000, 2)])
 def test_lm_head_kernel_matches_plain(cuda, dtype, N, E, V, k):
+    """E = 50 leaves rows off 16-byte boundaries (the plain-load staging);
+    E = 1600 ends on a partial 256-byte slab in bf16."""
     if k > 128:
         with pytest.raises(ValueError):
             lh.lm_head_sample(torch.zeros((N, E), device=cuda),
@@ -139,6 +143,95 @@ def test_lm_head_kernel_matches_plain(cuda, dtype, N, E, V, k):
         prev = torch.cat([torch.ones_like(sep[:, :1]), sep[:, :-1]], 1)
         checked = (sep & prev)[:, :k]
         assert ((idx == pi[:, :k]) | ~checked).all()
+
+
+def test_lm_head_refuses_a_hidden_width_beyond_shared_memory(cuda):
+    """h's 8 rows stay in shared memory: E above 2368 in fp32 raises
+    before any launch; bf16 takes twice the width."""
+    lh.reset_launch_count()
+    w = torch.zeros((300, 2400), device=cuda)
+    with pytest.raises(ValueError, match="too wide"):
+        lh.lm_head_sample(torch.zeros((2, 2400), device=cuda), w)
+    assert lh.launch_count() == 0
+    vals, idx = lh.lm_head_sample(torch.ones((2, 2400), device=cuda,
+                                             dtype=torch.bfloat16),
+                                  w.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    assert idx.tolist() == [[0], [0]] and lh.launch_count() == 1
+
+
+def _lm_special(case, dtype, device, N=8, E=96, V=5000):
+    """h, w, b with NaN / +inf / -inf logits: through the bias (the same
+    columns in every row; 7 and 3000 lie in different blocks of the
+    kernel) and an all-NaN row through a NaN in h."""
+    g = torch.Generator().manual_seed(V + E)
+    w = (torch.randn((V, E), generator=g) * 0.05).to(device, dtype)
+    h = torch.randn((N, E), generator=g)
+    b = torch.randn(V, generator=g) * 0.1
+    if case == "nan_nan_inf":
+        b[[7, 3000]] = float("nan")
+        b[4000] = float("inf")
+        h[3] = float("nan")
+    elif case == "nan":
+        b[3000] = float("nan")
+    elif case == "inf":
+        b[4000] = float("inf")
+    else:
+        h.zero_()
+        b.fill_(float("-inf"))
+    return h.to(device, dtype), w, b.to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 5])
+@pytest.mark.parametrize("case", ["nan_nan_inf", "nan", "inf", "neg_inf"])
+def test_lm_head_kernel_ranks_nan_and_inf_as_plain(cuda, dtype, k, case):
+    """A NaN of either sign ranks first, then the values descending, ties
+    smallest index first: where the plain top values are NaN or +-inf the
+    kernel's indices are the plain version's exactly; a row of -inf or of
+    NaN gives 0, 1, ..., k - 1."""
+    h, w, b = _lm_special(case, dtype, cuda)
+    vals, idx = lh.lm_head_sample(h, w, k=k, bias=b)
+    pv, pi = lh.lm_head_sample_plain(h, w, k=k + 1, bias=b)
+    torch.cuda.synchronize()
+    special = ~torch.isfinite(pv[:, :k])
+    assert special.any()
+    assert (idx == pi[:, :k])[special].all()
+    assert (torch.isnan(vals) == torch.isnan(pv[:, :k])).all()
+    fin = torch.isfinite(pv[:, :k])
+    assert ((vals - pv[:, :k]).abs() <= 1e-4)[fin].all()
+    assert (vals == pv[:, :k])[special & ~torch.isnan(pv[:, :k])].all()
+    gaps = pv[:, :-1] - pv[:, 1:]
+    sep = (gaps > 1e-4) | torch.isinf(gaps)
+    prev = torch.cat([torch.ones_like(sep[:, :1]), sep[:, :-1]], 1)
+    checked = (sep & prev)[:, :k] | special
+    assert ((idx == pi[:, :k]) | ~checked).all()
+    if case in ("nan_nan_inf", "neg_inf"):
+        row = 3 if case == "nan_nan_inf" else 0
+        assert idx[row].tolist() == list(range(k))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 5])
+def test_lm_head_row_alone_equals_row_in_batch(cuda, dtype, k):
+    """A row's result is bitwise the same alone as inside a batch of 8,
+    and two calls are bitwise equal (no atomics, a fixed merge order)."""
+    g = torch.Generator().manual_seed(3)
+    N, E, V = 8, 768, 50257
+    w = (torch.randn((V, E), generator=g) * 0.02).to(cuda, dtype)
+    h = torch.randn((N, E), generator=g).to(cuda, dtype)
+    b = (torch.randn(V, generator=g) * 0.1).to(cuda)
+    gum = torch.rand((N, V), generator=g).to(cuda)
+    for kw in ({}, {"bias": b, "gumbel": gum, "temperature": 0.7}):
+        vals, idx = lh.lm_head_sample(h, w, k=k, **kw)
+        again = lh.lm_head_sample(h, w, k=k, **kw)
+        assert torch.equal(vals, again[0]) and torch.equal(idx, again[1])
+        for r in (0, 5, 7):
+            one = {**kw, "gumbel": kw["gumbel"][r:r + 1].contiguous()} \
+                if "gumbel" in kw else kw
+            v1, i1 = lh.lm_head_sample(h[r:r + 1].contiguous(), w, k=k,
+                                       **one)
+            assert torch.equal(v1[0], vals[r]) and torch.equal(i1[0], idx[r])
 
 
 def test_tiny_engine_runs_both_kernels(cuda):

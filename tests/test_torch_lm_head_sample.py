@@ -3,7 +3,13 @@ CPU tensor runs) against the JAX package.  Greedy tokens must equal
 ``lm_head_sample_pallas(mode="greedy", interpret=True)``; top-k values
 and indices must equal ``jax.lax.top_k`` on the same fp32 logits,
 including the tie order (smallest index first), with V not a multiple
-of any block.  Values: fp32, atol 1e-5; indices exactly."""
+of any block.  Values: fp32, atol 1e-5; indices exactly.
+
+Rows with NaN, +inf and -inf logits are held to ``greedy_sample``
+(``jnp.argmax``: the first NaN wins) and to ``lax.top_k`` on NaNs whose
+sign bit is clear.  The Pallas kernel itself returns its sentinel index
+for a row that holds a NaN (its ``==`` on a NaN max matches nothing), so
+those rows are not compared with it."""
 
 import jax
 import jax.numpy as jnp
@@ -12,6 +18,7 @@ import pytest
 import torch
 
 from hetu_tpu.ops.pallas.lm_head import lm_head_sample_pallas
+from hetu_tpu.ops.random import greedy_sample
 from hetu_tpu_torch.ops.kernels import lm_head as lh
 
 ATOL = 1e-5
@@ -98,3 +105,91 @@ def test_k_out_of_range_raises_and_cpu_launches_nothing():
     lh.reset_launch_count()
     lh.lm_head_sample(torch.from_numpy(h), wt, k=2)
     assert lh.launch_count() == 0
+
+
+# NaN, +inf and -inf logits placed through the bias (the same columns in
+# every row) and an all-NaN row through a NaN in h.  V = 300 spans three
+# of the Pallas kernel's 128-column vocab blocks: the NaNs at 7 and 200
+# lie in two of them, the +inf at 250 in the second.
+SPECIAL = ["nan_nan_inf", "nan", "inf", "neg_inf"]
+
+
+def _special(case, N=4, E=32, V=300):
+    h, w, b = _inputs(N, E, V, seed=11)
+    if case == "nan_nan_inf":
+        b[[7, 200]] = np.nan
+        b[250] = np.inf
+        h[1] = np.nan                  # row 1: every logit NaN
+    elif case == "nan":
+        b[200] = np.nan
+    elif case == "inf":
+        b[250] = np.inf
+    else:                              # every row all -inf
+        h[:] = 0.0
+        b[:] = -np.inf
+    return h, w, b
+
+
+def _torch_args(h, w, b):
+    return (torch.from_numpy(h), torch.from_numpy(np.ascontiguousarray(w.T)),
+            torch.from_numpy(b))
+
+
+@pytest.mark.parametrize("case", SPECIAL)
+def test_greedy_ranks_nan_first_as_argmax(case):
+    h, w, b = _special(case)
+    lg = jnp.asarray(h) @ jnp.asarray(w) + jnp.asarray(b)
+    th, tw, tb = _torch_args(h, w, b)
+    got = lh.lm_head_greedy(th, tw, bias=tb).numpy()
+    np.testing.assert_array_equal(got, np.asarray(greedy_sample(lg)))
+    if case == "neg_inf":
+        assert (got == 0).all()
+
+
+@pytest.mark.parametrize("k", [1, 3, 5])
+@pytest.mark.parametrize("case", SPECIAL)
+def test_topk_ranks_nan_first_as_lax_top_k(case, k):
+    h, w, b = _special(case)
+    lg = jnp.asarray(h) @ jnp.asarray(w) + jnp.asarray(b)
+    nans = np.asarray(lg)[np.isnan(np.asarray(lg))]
+    assert not np.signbit(nans).any()   # lax.top_k ranks these NaNs first
+    th, tw, tb = _torch_args(h, w, b)
+    vals, idx = lh.lm_head_sample(th, tw, k=k, bias=tb)
+    rv, ri = jax.lax.top_k(lg, k)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ri))
+    np.testing.assert_allclose(vals.numpy(), np.asarray(rv), rtol=0,
+                               atol=ATOL)
+    if case == "nan_nan_inf":
+        np.testing.assert_array_equal(idx.numpy()[1], np.arange(k))
+
+
+_NEG_NAN = np.copysign(np.float32(np.nan), np.float32(-1.0))
+
+
+@pytest.mark.parametrize("logits,port,top_k", [
+    ([-0.0, 0.0, -1.0], [0, 1, 2], [1, 0, 2]),
+    ([_NEG_NAN, 1.0, np.nan, -np.inf], [0, 2, 1, 3], [2, 1, 3, 0]),
+], ids=["signed_zeros", "nan_with_sign_bit"])
+def test_port_order_where_lax_top_k_differs(logits, port, top_k):
+    """The two corners where ``lax.top_k`` on the CPU differs from
+    ``jnp.argmax``.  ``lax.top_k`` sorts by total order: +0.0 above -0.0,
+    and a NaN whose sign bit is set below -inf.  ``jnp.argmax``, the
+    Pallas kernel (``==`` on ``jnp.max``) and ``torch.sort`` treat the
+    zeros as equal and rank every NaN first; the port keeps that one
+    order for every k, so its indices here are not ``lax.top_k``'s.  With
+    E = 1 and h = 1 the logits are the weights exactly, signs included;
+    ``vals`` are the logits themselves."""
+    w = np.asarray(logits, np.float32)[:, None]               # (V, 1)
+    h = np.ones((2, 1), np.float32)
+    vals, idx = lh.lm_head_sample(torch.from_numpy(h), torch.from_numpy(w),
+                                  k=len(logits))
+    lg = jnp.asarray(h) @ jnp.asarray(w.T)
+    assert np.array_equal(np.signbit(np.asarray(lg)[0]), np.signbit(w[:, 0]))
+    np.testing.assert_array_equal(idx.numpy(), [port, port])
+    np.testing.assert_array_equal(np.signbit(vals.numpy()),
+                                  np.signbit(w[port, 0])[None].repeat(2, 0))
+    np.testing.assert_array_equal(lh.lm_head_greedy(
+        torch.from_numpy(h), torch.from_numpy(w)).numpy(),
+        np.asarray(greedy_sample(lg)))
+    ref_idx = jax.lax.top_k(lg, len(logits))[1]
+    np.testing.assert_array_equal(np.asarray(ref_idx), [top_k, top_k])
