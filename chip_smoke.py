@@ -17,7 +17,11 @@ where it happened; any failure exits non-zero:
    row served alone bitwise the same as in the batch, and paged decode
    timed again at the lengths phase 4's 126 decode steps reach; LM-head
    sampling at N=8 E=768 V=50257, k 1 and 5, plus rows of NaN, +inf and
-   -inf logits whose indices must equal the plain version's; flash at
+   -inf logits whose indices must equal the plain version's; the
+   threefry bits, the uniform (bitwise) and the Gumbel field (2e-6) of
+   the decode step's (8, 50257) on the card against the CPU, and
+   ``lm_head_sample_tokens`` in temperature and top-k mode against its
+   plain route on the same field; flash at
    B=8 H=12 S=1024 D=64 causal
    and at a ragged S=1000; the LM-head cross entropy at N=8184 E=768
    V=50257 with ignored labels and a bias, and at GPT-2 XL's width
@@ -29,11 +33,21 @@ where it happened; any failure exits non-zero:
    least time the card could take (the bound);
 4. engine: GPT-2 small at full width and depth (random weights from a
    seeded generator, trainable) serves 16 requests through
-   ``ServingEngine`` with autograd off in every module call; both
-   kernels must have launched on that run, decode must build no
+   ``ServingEngine`` with autograd off in every module call, the paged
+   decode step one captured CUDA graph; both kernels must have launched
+   on that run (12 paged-decode and 1 LM-head launch a decode step,
+   counted through the graph's replays), decode must build no
    contiguous K/V view, a request served alone must give the same
-   stream as inside the batch, and the first generated tokens must agree
-   with a full-recompute greedy reference run on the CPU;
+   stream as inside the batch, a replayed step must equal the eager
+   step bitwise (tokens and pool bytes), and the first generated tokens
+   must agree with a full-recompute greedy reference run on the CPU.
+   Then the same 16 requests again in ``temperature`` (T = 0.8) and
+   ``top_k`` (k = 5, T = 0.8) mode, each with the same launch counts, a
+   same-seed rerun bitwise equal, the probe request alone (under its
+   batched id) equal to its batched stream and a replayed step equal to
+   the eager one; agreement with the gather path, tokens/s, the median
+   decode step and the decode profile with the graph and without it are
+   printed for information;
 5. train: GPT-2 small at full width and depth, fp32, with
    ``flash_attn_fn(native_layout=True)`` and the streamed head (chunk
    1024): the step-0 loss and every gradient against the plain path on
@@ -1414,6 +1428,171 @@ def bert_phase(fln, card):
     return counts
 
 
+# Phase 4's stochastic modes: top-k's k, and both modes' temperature.
+SERVE_TOP_K, SERVE_TEMPERATURE = 5, 0.8
+GUMBEL_TOL = 2e-6   # torch.log on the card against torch.log on the CPU
+
+
+def check_rng(flush, N=SERVE_SLOTS, V=50257):
+    """The threefry bits, the uniform and the Gumbel field at the decode
+    step's shape, ``(N, V)`` from N per-row keys derived as the engine
+    derives them, on the card against the CPU: bits and uniform bitwise,
+    the field within GUMBEL_TOL; and the field's device time."""
+    from hetu_tpu_torch.core import prng
+    from hetu_tpu_torch.ops import random as rnd
+    keys = prng.fold_in_tensor(prng.fold_in_tensor(
+        prng.key(0), torch.arange(N)), torch.arange(N) + 100)
+    dk = keys.cuda()
+    assert torch.equal(prng.random_bits(dk, (V,)).cpu(),
+                       prng.random_bits(keys, (V,))), \
+        "random_bits on the card differ from the CPU's"
+    tiny = torch.finfo(torch.float32).tiny
+    for lo, hi in ((tiny, 1.0), (-3.5, 7.25)):
+        u = rnd._uniform(dk, (V,), torch.float32, lo, hi).cpu()
+        ref = rnd._uniform(keys, (V,), torch.float32, lo, hi)
+        assert torch.equal(u.view(torch.int32), ref.view(torch.int32)), \
+            f"the uniform on ({lo}, {hi}) differs on the card"
+    err = (rnd._gumbel(dk, (V,)).cpu() - rnd._gumbel(keys, (V,))).abs()
+    err = err.max().item()
+    ms = time_ms(lambda: rnd._gumbel(dk, (V,)), flush, reps=10)
+    print(f"threefry bits and uniform ({N}, {V}): bitwise equal to the "
+          f"CPU's; Gumbel field max_abs_err {err:.3e} tol {GUMBEL_TOL:g}; "
+          f"the field takes {ms:.4f} ms on the card (eager, L2 flushed)")
+    assert err <= GUMBEL_TOL, f"Gumbel field on the card: {err}"
+
+
+def check_sample_tokens(lh, N=SERVE_SLOTS, E=768, V=50257):
+    """``lm_head_sample_tokens`` at GPT-2 small's head in the two
+    stochastic modes against its plain route on the same Gumbel field or
+    the same candidates: tokens equal wherever the two best perturbed
+    scores are separated by more than the kernel's 1e-4 value tolerance."""
+    from hetu_tpu_torch.core import prng
+    from hetu_tpu_torch.ops import random as rnd
+    g = torch.Generator().manual_seed(11)
+    w = (torch.randn((V, E), generator=g) * 0.02).cuda()
+    h = torch.randn((N, E), generator=g).cuda()
+    keys = prng.fold_in_tensor(prng.key(1), torch.arange(N)).cuda()
+    T = SERVE_TEMPERATURE
+    for mode in ("temperature", "top_k"):
+        got = lh.lm_head_sample_tokens(h, w, mode=mode, top_k=SERVE_TOP_K,
+                                       temperature=T, keys=keys)
+        if mode == "temperature":
+            vals, idx = lh.lm_head_sample_plain(
+                h, w, k=2, gumbel=rnd._gumbel(keys, (V,)), temperature=T)
+            ref, sep = idx[:, 0], vals[:, 0] - vals[:, 1] > 1e-4
+        else:
+            vals, idx = lh.lm_head_sample_plain(h, w, k=SERVE_TOP_K)
+            scores = rnd._gumbel(keys, (SERVE_TOP_K,)) + vals / T
+            top = torch.sort(scores, descending=True).values
+            ref = torch.gather(idx, 1,
+                               rnd.greedy_sample(scores).long()[:, None])
+            ref, sep = ref[:, 0], top[:, 0] - top[:, 1] > 1e-4
+        same = int((got == ref).sum())
+        print(f"lm_head_sample_tokens {mode} (k={SERVE_TOP_K}, T={T}): "
+              f"{same}/{N} tokens equal to the plain route, {int(sep.sum())}"
+              f" rows separated by more than 1e-4")
+        assert torch.equal(got[sep], ref[sep]) and sep.sum() >= N - 1, \
+            f"lm_head_sample_tokens {mode} differs from its plain route"
+
+
+def graph_vs_eager(eng):
+    """The engine's next decode step through its captured graph and
+    through the eager impl, from the same pool: ``(tokens equal, pool
+    bytes equal)``; the pool is left as the eager step wrote it."""
+    args = eng._decode_inputs(eng.batcher.active())[1]
+    k0, v0 = eng.pool.k.clone(), eng.pool.v.clone()
+    replayed = eng._decode_graph(*args)
+    kg, vg = eng.pool.k.clone(), eng.pool.v.clone()
+    eng.pool.k.copy_(k0)
+    eng.pool.v.copy_(v0)
+    eager = eng._paged_decode_impl(*map(eng._tensor, args)).tolist()
+    same = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+               for a, b in ((kg, eng.pool.k), (vg, eng.pool.v)))
+    assert not torch.equal(kg.view(torch.uint8), k0.view(torch.uint8))
+    return replayed == eager, same
+
+
+def check_replay(engine, prompts, budget, **kw):
+    """Three ticks of the phase's 16 requests (the first decode step
+    captures the graph), then one replayed step against the eager impl,
+    bitwise in tokens and pool bytes."""
+    eng = engine(**kw)
+    for p in prompts:
+        eng.submit(p, max_new_tokens=budget)
+    for _ in range(3):
+        eng.step()
+    assert eng._decode_graph.captured
+    toks, pool = graph_vs_eager(eng)
+    print(f"graph replay vs eager impl ({kw.get('sampling', 'greedy')}): "
+          f"tokens {'equal' if toks else 'DIFFER'}, pool bytes "
+          f"{'equal' if pool else 'DIFFER'} (bitwise)")
+    assert toks and pool, "a replayed decode step differs from the eager one"
+
+
+def serve_mode(engine, eager_engine, prompts, budget, cfg, pd, lh, mode):
+    """Phase 4 in a stochastic mode: the 16 requests with their counts
+    read just after, a same-seed rerun, the probe request alone under its
+    batched id, a replayed step against the eager one; then, for
+    information, agreement with the gather path, tokens/s, the median
+    decode step and the decode profile with the graph and without it."""
+    kw = dict(sampling=mode, top_k=SERVE_TOP_K,
+              temperature=SERVE_TEMPERATURE)
+    eng = engine(**kw)
+    torch.cuda.synchronize()
+    pd.reset_launch_count()
+    lh.reset_launch_count()
+    t0 = time.monotonic()
+    handles = [eng.submit(p, max_new_tokens=budget) for p in prompts]
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = (pd.launch_count(), lh.launch_count())
+    st = eng.stats()
+    bad = [(h.request_id, h.status, h.error) for h in handles
+           if h.status != "completed" or len(h.tokens) != budget]
+    assert not bad, f"{mode}: requests not completed: {bad}"
+    assert all(0 <= t < cfg.vocab_size for h in handles for t in h.tokens)
+    steps = st["decode_steps"]
+    print(f"{mode} (k={SERVE_TOP_K}, T={SERVE_TEMPERATURE}): launches "
+          f"paged_decode {launches[0]}, lm_head_sample {launches[1]}, "
+          f"decode steps {steps} (one CUDA graph, captured: "
+          f"{eng._decode_graph.captured})")
+    assert launches[0] == cfg.num_layers * steps > 0
+    assert launches[1] == steps
+    streams = [h.tokens for h in handles]
+    del eng
+    again = engine(**kw)
+    ah = [again.submit(p, max_new_tokens=budget) for p in prompts]
+    again.run_until_idle()
+    assert [h.tokens for h in ah] == streams, f"{mode}: same-seed rerun"
+    probe = 11
+    alone = engine(**kw)
+    h = alone.submit(prompts[probe], max_new_tokens=budget,
+                     request_id=probe)
+    alone.run_until_idle()
+    assert h.tokens == streams[probe], f"{mode}: alone != batched"
+    print(f"{mode}: same-seed rerun bitwise equal; request {probe} alone "
+          f"== batched ({budget} tokens)")
+    del again, alone
+    check_replay(engine, prompts, budget, **kw)
+    gather = engine(paged_decode=False, fused_sampling=False, **kw)
+    gh = [gather.submit(p, max_new_tokens=budget) for p in prompts]
+    gather.run_until_idle()
+    same = sum(a == b.tokens for a, b in zip(streams, gh))
+    del gather
+    print(f"info: {mode} kernel path vs gather path: {same}/{len(gh)} "
+          f"streams identical")
+    print(f"{mode}: served {len(handles)} requests, {st['tokens']} tokens "
+          f"in {wall:.3f} s: {st['tokens'] / wall:.1f} tokens/s; median "
+          f"decode step {st['decode_step_s_p50'] * 1e3:.3f} ms")
+    graph = profile_decode(lambda: engine(**kw), prompts, f"{mode}, graph")
+    eager = profile_decode(lambda: eager_engine(**kw), prompts,
+                           f"{mode}, eager")
+    return {"steps": steps, "tokens_per_s": st["tokens"] / wall,
+            "median_step_ms": st["decode_step_s_p50"] * 1e3,
+            "graph": graph, "eager": eager}
+
+
 def reference_greedy(cpu_model, prompt, n):
     """Greedy continuation by full recomputation on the CPU; returns the
     tokens and each step's last-position logits."""
@@ -1428,11 +1607,12 @@ def reference_greedy(cpu_model, prompt, n):
     return toks, logits
 
 
-def profile_decode(make_engine, prompts, steps=10):
+def profile_decode(make_engine, prompts, label, steps=10):
     """Information only: where a decode step's time goes.  Eight requests
     fill the slots; ``steps`` decode ticks are timed bare, then again
     under ``torch.profiler``, whose device time by kernel name gives the
-    device's busy share of the step."""
+    device's busy share of the step.  Returns ``(bare step ms, device
+    busy ms per step or None)``."""
     from torch.profiler import ProfilerActivity, profile
     eng = make_engine()
     for p in prompts[:8]:
@@ -1455,12 +1635,12 @@ def profile_decode(make_engine, prompts, steps=10):
     rows = [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages()
             if e.device_type == cuda and e.self_device_time_total > 0]
-    print(f"decode step (8 active slots): {bare * 1e3:.3f} ms wall without "
-          f"the profiler")
+    print(f"decode step ({label}, 8 active slots): {bare * 1e3:.3f} ms wall "
+          f"without the profiler")
     if not rows:
         print("device busy time: not measured (the profiler saw no device "
               "activity)")
-        return
+        return bare * 1e3, None
     dev_ms = union_ms([sp[1:] for sp in device_spans(prof)]) / steps
     print(f"device busy {dev_ms:.3f} ms per step, {dev_ms / (bare * 1e3):.1%}"
           f" of the bare step (torch.profiler; kernel durations sum to "
@@ -1474,6 +1654,7 @@ def profile_decode(make_engine, prompts, steps=10):
     print(f"LM-head sampling (head_topk_partial + head_topk_merge): "
           f"{union_ms(sample) / steps:.4f} ms per step busy, "
           f"{len(sample) // steps} launches per step")
+    return bare * 1e3, dev_ms
 
 
 def main() -> int:
@@ -1531,6 +1712,8 @@ def main() -> int:
                                 serve_lens))
     lm_rows = {(dt, k): check_lm_head(lh, flush, dt, k, gen)
                for dt in (torch.float32, torch.bfloat16) for k in (1, 5)}
+    check_rng(flush)
+    check_sample_tokens(lh)
     fl_rows = {dt: check_flash(fl, flush, dt, 1024, gen, timed=True)
                for dt in (torch.float32, torch.bfloat16)}
     check_flash(fl, flush, torch.float32, 1000, gen, timed=False)
@@ -1557,6 +1740,13 @@ def main() -> int:
     def engine(**kw):
         return ServingEngine(model, num_slots=SERVE_SLOTS, page_size=16,
                              **kw)
+
+    def eager_engine(**kw):
+        """The same engine with its paged step run eagerly (the graph
+        dropped), for the profile's comparison only."""
+        eng = engine(**kw)
+        eng._decode_graph = None
+        return eng
 
     warm = engine()
     warm.submit(prompts[0][:5], max_new_tokens=2)
@@ -1608,7 +1798,10 @@ def main() -> int:
           f"{statistics.median(ttft) * 1e3:.2f} ms max {ttft[-1] * 1e3:.2f}"
           f" ms (8 slots, prompts 5-128 tokens, {budget} new tokens each)")
 
-    profile_decode(engine, prompts)
+    assert eng._decode_graph.captured
+    greedy_profile = (profile_decode(engine, prompts, "greedy, graph"),
+                      profile_decode(eager_engine, prompts, "greedy, eager"))
+    check_replay(engine, prompts, budget)
 
     probe = 11   # admitted in the second wave, into a reused slot
     alone = engine()
@@ -1653,7 +1846,21 @@ def main() -> int:
           f"{lerr:.3e} tol 1e-3")
     assert torch.isfinite(full_gpu).all() and lerr <= 1e-3
 
-    del model, cpu_model, eng, alone, gather
+    del cpu_model, eng, alone, gather
+    modes = {m: serve_mode(engine, eager_engine, prompts, budget, cfg, pd,
+                           lh, m) for m in ("temperature", "top_k")}
+    modes["greedy"] = {"steps": steps, "tokens_per_s": st["tokens"] / wall,
+                       "median_step_ms": st["decode_step_s_p50"] * 1e3,
+                       "graph": greedy_profile[0],
+                       "eager": greedy_profile[1]}
+    for m, r in modes.items():
+        busy = [("not measured" if b is None else
+                 f"{b:.3f} ms busy of {ms:.3f} ({b / ms:.1%})")
+                for ms, b in (r["graph"], r["eager"])]
+        print(f"decode step {m}: graph {busy[0]}, eager {busy[1]}; "
+              f"{r['tokens_per_s']:.1f} tokens/s, median step "
+              f"{r['median_step_ms']:.3f} ms over the 16-request run")
+    del model
     torch.cuda.empty_cache()
 
     phase("5 train: GPT-2 small")

@@ -10,15 +10,24 @@ arguments, and :func:`key_words` gives them as two Python ints.
 ``split`` is the *partitionable* variant (``jax_threefry_partitionable``,
 on by default since JAX 0.5): key ``i`` of ``split(k, n)`` is
 ``threefry2x32(k, (0, i))``, the same as ``fold_in(k, i)``.
+
+The same hash runs on tensors of any device (:func:`threefry2x32_tensor`):
+:func:`random_bits` draws ``jax.random.bits`` from a key or a batch of
+keys, and :func:`fold_in_tensor` derives a batch of keys on the device.
+Tensors hold uint32 values in ``int64``, masked to 32 bits after every
+add and every left shift.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 __all__ = ["key", "fold_in", "split", "key_data", "key_words",
-           "threefry2x32"]
+           "threefry2x32", "threefry2x32_tensor", "random_bits",
+           "fold_in_tensor"]
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -89,3 +98,61 @@ def key_data(k) -> torch.Tensor:
     if isinstance(k, torch.Tensor):
         return k.to(device="cpu", dtype=torch.int64) & _M32
     return torch.from_numpy(np.asarray(k, dtype=np.uint32).astype(np.int64))
+
+
+def _rotl_tensor(v: torch.Tensor, r: int) -> torch.Tensor:
+    return ((v << r) & _M32) | (v >> (32 - r))
+
+
+def threefry2x32_tensor(k0, k1, x0, x1) -> tuple:
+    """:func:`threefry2x32` elementwise on ``int64`` tensors holding uint32
+    values (any device; the key words may be tensors or Python ints, and
+    all four broadcast), so a batch of keys hashes in one pass."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = _rotl_tensor(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x0, x1
+
+
+def _key_tensor(keys) -> torch.Tensor:
+    keys = keys if isinstance(keys, torch.Tensor) else key_data(keys)
+    if keys.shape[-1:] != (2,) or keys.dim() not in (1, 2):
+        raise ValueError(f"keys must be one key (2,) or a batch (n, 2), "
+                         f"got {tuple(keys.shape)}")
+    return keys.to(torch.int64) & _M32
+
+
+def random_bits(keys, shape) -> torch.Tensor:
+    """``jax.random.bits(key, shape)`` (uint32) on the keys' device as
+    ``int64`` values in ``[0, 2**32)``: JAX's partitionable path, where
+    element ``i`` of the flattened shape is ``x0 ^ x1`` of the threefry
+    of the counter ``(i >> 32, i & 0xFFFFFFFF)``.  ``keys`` is one key
+    ``(2,)``, giving ``shape``, or a batch ``(n, 2)``, giving ``(n,
+    *shape)`` with row ``r`` drawn from key ``r``."""
+    keys = _key_tensor(keys)
+    shape = tuple(int(d) for d in shape)
+    i = torch.arange(math.prod(shape), dtype=torch.int64, device=keys.device)
+    k = keys.reshape(-1, 2)
+    x0, x1 = threefry2x32_tensor(k[:, :1], k[:, 1:], i >> 32, i & _M32)
+    bits = x0 ^ x1
+    return bits.reshape(shape if keys.dim() == 1 else (k.shape[0], *shape))
+
+
+def fold_in_tensor(keys, data) -> torch.Tensor:
+    """``jax.vmap(jax.random.fold_in)(keys, data)`` on the keys' device:
+    keys ``(n, 2)`` (or one key ``(2,)``, shared by every row), data
+    ``(n,)`` of any integer type, cast to uint32 as ``fold_in`` casts it
+    (a negative int32 becomes its two's complement).  Returns ``(n, 2)``
+    keys."""
+    keys = _key_tensor(keys)
+    data = torch.as_tensor(data, device=keys.device).to(torch.int64) & _M32
+    k = keys.reshape(-1, 2)
+    x0, x1 = threefry2x32_tensor(k[:, 0], k[:, 1], torch.zeros_like(data),
+                                 data)
+    return torch.stack([x0, x1], dim=-1)

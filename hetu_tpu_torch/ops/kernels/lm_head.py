@@ -21,13 +21,18 @@ does a row of NaN.  That is ``lax.top_k``'s order except in two corners
 where ``lax.top_k`` sorts by total order (+0.0 above -0.0, a NaN with its
 sign bit set below -inf) and ``jnp.argmax`` does not.  h is cast to W's
 type first and the products accumulate in fp32.  ``k = 1`` is greedy
-decoding, which is all the serving engine asks of it; ``g`` and ``T``
-are there so the whole function is ported.
+decoding; with ``g`` and ``T`` it is the temperature sampler's draw,
+and with ``k > 1`` the top-k sampler's candidates.
+:func:`lm_head_sample_tokens` is the TPU module's entry
+(``lm_head_sample_pallas``): the serving engine's next tokens in each
+sampling mode, drawn from per-row threefry keys as ``ops.random``'s
+samplers draw them from the same logits.
 
 :func:`lm_head_sample` runs :func:`lm_head_sample_plain` only when its
 inputs lie on the CPU.  For CUDA tensors it launches the kernel or
 raises; there is no fallback.  ``launch_count()`` counts its calls that
-launched the kernel.
+launched the kernel, and :func:`add_launches` adds the launches a CUDA
+graph's replay made (a captured call launches nothing at capture).
 """
 
 from __future__ import annotations
@@ -35,9 +40,11 @@ from __future__ import annotations
 import torch
 
 from hetu_tpu_torch.ops.kernels import _build
+from hetu_tpu_torch.ops.random import _categorical, _gumbel, _top_k
 
 __all__ = ["lm_head_sample", "lm_head_sample_plain", "lm_head_greedy",
-           "launch_count", "reset_launch_count"]
+           "lm_head_sample_tokens", "launch_count", "reset_launch_count",
+           "add_launches"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_K = 128
@@ -53,6 +60,13 @@ def launch_count() -> int:
 def reset_launch_count() -> None:
     global _launches
     _launches = 0
+
+
+def add_launches(n: int) -> None:
+    """Count ``n`` launches made by replaying a CUDA graph that captured
+    calls of :func:`lm_head_sample`."""
+    global _launches
+    _launches += n
 
 
 def _blocks(lib, dtype: int, E: int, V: int, device) -> int:
@@ -80,17 +94,17 @@ def _check_k(k: int, V: int) -> int:
 def lm_head_sample_plain(hidden, weight, *, k: int = 1, bias=None,
                          gumbel=None, temperature: float = 1.0):
     """The same function in plain PyTorch: fp32 logits, then a stable
-    descending sort.  ``torch.sort`` ranks every NaN above every number
-    and compares -0.0 equal to +0.0, and the stable sort keeps equal
-    values in ascending index order: the module's order."""
+    descending sort (``ops.random._top_k``).  ``torch.sort`` ranks every
+    NaN above every number and compares -0.0 equal to +0.0, and the
+    stable sort keeps equal values in ascending index order: the
+    module's order."""
     k = _check_k(k, weight.shape[0])
     lg = (hidden.to(weight.dtype).float() @ weight.float().T)
     if bias is not None:
         lg = lg + bias.float()
     if gumbel is not None:
         lg = gumbel.float() + lg / temperature
-    vals, idx = torch.sort(lg, dim=-1, descending=True, stable=True)
-    return vals[:, :k].contiguous(), idx[:, :k].to(torch.int32).contiguous()
+    return _top_k(lg, k)
 
 
 def lm_head_sample(hidden, weight, *, k: int = 1, bias=None, gumbel=None,
@@ -154,3 +168,45 @@ def lm_head_greedy(hidden, weight, *, bias=None):
     """Greedy tokens ``(N,)`` int32: the first maximum of each row's
     logits, as ``greedy_sample(hidden @ weight.T)`` gives it."""
     return lm_head_sample(hidden, weight, k=1, bias=bias)[1][:, 0]
+
+
+def lm_head_sample_tokens(hidden, weight, *, bias=None, mode: str = "greedy",
+                          top_k: int = 5, temperature: float = 1.0,
+                          keys=None):
+    """Next tokens ``(N,)`` int32 straight from decode hidden states, in
+    sampling ``mode`` (the TPU module's ``lm_head_sample_pallas``):
+
+    - ``"greedy"``: the first maximum of each row's logits;
+    - ``"temperature"``: ``temperature_sample(logits, T, key=keys[r])``
+      for each row, as the argmax of ``g + logits / T`` with ``g`` the
+      row's ``(V,)`` Gumbel field, built here and streamed through the
+      kernel (``k = 1``);
+    - ``"top_k"``: the kernel's ``k`` best logits of each row, then
+      ``jax.random.categorical(keys[r], vals[r] / T)`` among them (a
+      Gumbel of shape ``(k,)`` from the row's key), as ``top_k_sample``.
+
+    ``keys``: ``(N, 2)`` threefry keys, one per row, required by the
+    stochastic modes; ``temperature <= 0`` collapses them to greedy.
+    ``k = min(top_k, V)`` must lie in ``[1, 128]``.  On CUDA tensors the
+    kernel runs (or raises); CPU tensors run its plain version."""
+    if mode not in ("greedy", "temperature", "top_k"):
+        raise ValueError(f"unknown sampling mode {mode!r}; one of "
+                         f"'greedy', 'temperature', 'top_k'")
+    if mode != "greedy" and temperature <= 0.0:
+        mode = "greedy"  # the samplers' conventional T->0 collapse
+    if mode != "greedy" and keys is None:
+        raise ValueError(f"mode={mode!r} needs per-row PRNG keys")
+    V = weight.shape[0]
+    k = 1 if mode != "top_k" else min(int(top_k), V)
+    if not 1 <= k <= _MAX_K:
+        raise ValueError(f"top_k must be in [1, 128], got {k}")
+    if mode == "greedy":
+        return lm_head_greedy(hidden, weight, bias=bias)
+    keys = torch.as_tensor(keys).to(hidden.device)
+    if mode == "temperature":
+        g = _gumbel(keys, (V,))
+        return lm_head_sample(hidden, weight, k=1, bias=bias, gumbel=g,
+                              temperature=temperature)[1][:, 0]
+    vals, idx = lm_head_sample(hidden, weight, k=k, bias=bias)
+    choice = _categorical(keys, vals / temperature)
+    return torch.gather(idx, 1, choice.long()[:, None])[:, 0]

@@ -17,7 +17,9 @@ type.
 :func:`paged_decode_attention` runs :func:`paged_decode_attention_plain`
 only when its inputs lie on the CPU.  For CUDA tensors it launches the
 kernels or raises; there is no fallback.  ``launch_count()`` counts the
-wrapper's calls that launched them.
+wrapper's calls that launched them, and :func:`add_launches` adds those
+a CUDA graph's replay made (a captured call launches nothing at
+capture).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from hetu_tpu_torch.ops.kernels import _build
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_plain",
            "chunk_plan", "heads_per_block", "launch_count",
-           "reset_launch_count"]
+           "reset_launch_count", "add_launches"]
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -68,6 +70,13 @@ def launch_count() -> int:
 def reset_launch_count() -> None:
     global _launches
     _launches = 0
+
+
+def add_launches(n: int) -> None:
+    """Count ``n`` launches made by replaying a CUDA graph that captured
+    calls of :func:`paged_decode_attention`."""
+    global _launches
+    _launches += n
 
 
 def _layer_pools(k_pool, v_pool, layer):

@@ -8,23 +8,29 @@ path — runs at the fixed ``(num_slots, 1)`` shape.  With
 ``paged_decode=True`` (the default) it is the paged step: attention is
 the paged-decode CUDA kernel reading K/V pages in place through the page
 tables (``kv_cache.gather_view_count`` shows no view is built), and the
-greedy token comes from the fused LM-head CUDA kernel, so neither the
+next token comes from the fused LM-head CUDA kernel, so neither the
 contiguous K/V views nor the ``(slots, vocab)`` logits reach device
-memory.  ``paged_decode=False`` restores the gather step for decode, and
-``fused_sampling=False`` samples from materialised logits.
+memory.  On CUDA the paged step runs as one captured CUDA graph
+(``serve/graph.py``), the counterpart of the reference's one jitted
+program; on the CPU it runs eagerly.  ``paged_decode=False`` restores the
+gather step for decode, and ``fused_sampling=False`` samples from
+materialised logits.
 
-A request's token stream depends only on its prompt and the weights,
-not on which requests shared its batch: every step runs at fixed shapes
-and each row's arithmetic is independent of the others'.
+Sampling: ``"greedy"``, ``"temperature"`` (softmax at ``temperature``)
+or ``"top_k"`` (among the ``top_k`` best logits at ``temperature``), the
+reference's samplers drawn from the reference's keys:
+``fold_in(fold_in(key(seed), request id), position)`` for each row,
+derived on the device from the request ids and positions, so the same
+seed gives the reference's token streams.  A request's token stream
+depends only on its prompt, the weights and the seed, not on which
+requests shared its batch: every step runs at fixed shapes and each
+row's arithmetic and key are independent of the others'.
 
 Deadlines: a request past ``deadline_s`` while queued is dropped before
 admission; one that passes it while running is retired at the next tick
 with the tokens it has.  Both resolve with status ``expired``.
 
-Only greedy sampling is ported.  ``sampling="temperature"`` and
-``"top_k"`` raise ``NotImplementedError``: drawing the reference's tokens
-needs a torch port of ``jax.random``'s threefry2x32 first (ROADMAP
-Queue 1).  Left out of this slice, and listed in ``ROADMAP.md``: the
+Left out of this slice, and listed in ``ROADMAP.md``: the
 observability registry, request tracing and SLOs, the runtime
 controller, tenant metering, CTR inference, fleet tiers (prefix sharing,
 speculative decoding, disaggregation, failover) and the HTTP server.
@@ -41,11 +47,14 @@ import torch
 import torch.nn.functional as F
 
 from hetu_tpu_torch.core.device import resolve_device
-from hetu_tpu_torch.ops.kernels.lm_head import lm_head_greedy
-from hetu_tpu_torch.ops.random import greedy_sample
+from hetu_tpu_torch.core.prng import fold_in_tensor, key
+from hetu_tpu_torch.ops.kernels.lm_head import lm_head_sample_tokens
+from hetu_tpu_torch.ops.random import (greedy_sample, temperature_sample,
+                                       top_k_sample)
 from hetu_tpu_torch.serve import kv_cache as _kv
 from hetu_tpu_torch.serve.batcher import (AdmissionQueueFull,
                                           ContinuousBatcher, Request)
+from hetu_tpu_torch.serve.graph import DecodeGraph
 from hetu_tpu_torch.serve.kv_cache import (KVCachePool, OutOfPages,
                                            gather_views, scatter_views)
 
@@ -90,17 +99,15 @@ class ServingEngine:
                  max_seq_len: Optional[int] = None,
                  num_pages: Optional[int] = None, queue_depth: int = 64,
                  prompt_buckets=None, sampling: str = "greedy",
+                 top_k: int = 5, temperature: float = 1.0,
                  eos_id: Optional[int] = None, seed: int = 0,
                  clock=time.monotonic, paged_decode: bool = True,
-                 fused_sampling: bool = True, device=None):
-        if sampling in ("temperature", "top_k"):
-            raise NotImplementedError(
-                f"sampling={sampling!r} is not ported yet: it needs the "
-                f"threefry2x32 / fold_in / gumbel port (ROADMAP Queue 1) "
-                f"to draw the reference's tokens; use sampling='greedy'")
-        if sampling != "greedy":
+                 fused_sampling: Optional[bool] = None, device=None):
+        if sampling not in ("greedy", "top_k", "temperature"):
             raise ValueError(f"unknown sampling mode {sampling!r}; one of "
                              f"'greedy', 'top_k', 'temperature'")
+        if sampling == "top_k" and top_k < 1:
+            raise ValueError(f"top_k must be >= 1, got {top_k}")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, the engine on "
@@ -109,7 +116,10 @@ class ServingEngine:
         self.model = model
         self.eos_id = eos_id
         self.sampling = sampling
-        self.seed = seed  # for the stochastic samplers, once ported
+        self.top_k = top_k
+        self.temperature = temperature
+        self.seed = seed
+        self._base_key = key(seed).to(self.device)
         self.clock = clock
         self.max_seq_len = min(max_seq_len or cfg.max_seq_len,
                                cfg.max_seq_len)
@@ -129,7 +139,16 @@ class ServingEngine:
         self.batcher = ContinuousBatcher(num_slots, queue_depth=queue_depth,
                                          prompt_buckets=buckets)
         self.paged_decode = bool(paged_decode)
+        if fused_sampling is None:
+            # the fused kernel keeps at most 128 candidates a row; a wider
+            # top-k samples from materialised logits (still paged)
+            fused_sampling = (sampling != "top_k"
+                              or min(top_k, cfg.vocab_size) <= 128)
         self._fused_sampling = bool(fused_sampling)
+        self._decode_graph = (
+            DecodeGraph(self._paged_decode_impl, num_slots, pages_per_seq,
+                        self.device)
+            if self.paged_decode and self.device.type == "cuda" else None)
         self._lock = threading.RLock()
         self._handles: dict = {}
         self._next_id = 0
@@ -150,19 +169,44 @@ class ServingEngine:
         scatter_views(self.pool.k, self.pool.v, page_idx, k_view, v_view)
         return logits
 
-    def _paged_decode_impl(self, page_tables, lengths, tokens):
+    def _paged_decode_impl(self, page_tables, lengths, tokens, request_ids,
+                           positions):
         """The paged decode step: attention reads K/V pages in place
         (paged-decode kernel), each layer's new K/V lands with one small
-        in-place write, and the greedy token comes from the fused LM-head
-        kernel.  Returns ``(num_slots,)`` int32 tokens."""
+        in-place write, and the next token comes from the fused LM-head
+        kernel.  Same keys as :meth:`_sample_impl`, so the streams are
+        the same.  Returns ``(num_slots,)`` int32 tokens.  On CUDA this is
+        what :class:`DecodeGraph` captures."""
         x, _ = self.model.hidden_states(
             tokens, kv_cache=(self.pool.k, self.pool.v),
             cache_index=lengths, paged_tables=page_tables)
         last = x[:, -1]
         head = self.model._head()
         if self._fused_sampling:
-            return lm_head_greedy(last, head)
-        return greedy_sample(F.linear(last, head.to(last.dtype)))
+            keys = (None if self.sampling == "greedy"
+                    else self._keys(request_ids, positions))
+            return lm_head_sample_tokens(
+                last, head, mode=self.sampling, top_k=self.top_k,
+                temperature=self.temperature, keys=keys)
+        return self._sample_impl(F.linear(last, head.to(last.dtype)),
+                                 request_ids, positions)
+
+    def _keys(self, request_ids, positions) -> torch.Tensor:
+        """Each row's key ``fold_in(fold_in(key(seed), rid), pos)``,
+        derived on the device: the host ships two int vectors, not keys."""
+        return fold_in_tensor(fold_in_tensor(self._base_key, request_ids),
+                              positions)
+
+    def _sample_impl(self, logits, request_ids, positions):
+        """Per-row seeded sampling of ``(rows, vocab)`` logits, each row
+        from its own key (:meth:`_keys`), so batch composition cannot
+        perturb any request's stream."""
+        if self.sampling == "greedy":
+            return greedy_sample(logits)
+        keys = self._keys(request_ids, positions)
+        if self.sampling == "temperature":
+            return temperature_sample(logits, self.temperature, key=keys)
+        return top_k_sample(logits, self.top_k, self.temperature, key=keys)
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.from_numpy(np.asarray(a)).to(self.device)
@@ -170,13 +214,25 @@ class ServingEngine:
     # -- submission ---------------------------------------------------------
 
     def submit(self, prompt, max_new_tokens: int = 16, *,
-               deadline_s: Optional[float] = None) -> RequestHandle:
+               deadline_s: Optional[float] = None,
+               request_id: Optional[int] = None) -> RequestHandle:
         """Queue one generation request; never blocks.  The handle
-        resolves when the request completes, is rejected, or expires."""
+        resolves when the request completes, is rejected, or expires.
+
+        ``request_id`` pins the id instead of drawing from this engine's
+        counter: a stochastic stream is a function of ``(seed, request
+        id, prompt)``, so a request served alone under its batched id
+        reproduces its batched stream."""
         prompt = [int(t) for t in np.asarray(prompt).ravel()]
         with self._lock:
-            rid = self._next_id
-            self._next_id += 1
+            if request_id is None:
+                rid = self._next_id
+            else:
+                rid = int(request_id)
+                if rid in self._handles:
+                    raise ValueError(f"request id {rid} is already in "
+                                     f"flight on this engine")
+            self._next_id = max(self._next_id, rid + 1)
             handle = RequestHandle(rid)
             req = Request(id=rid, prompt=prompt,
                           max_new_tokens=int(max_new_tokens),
@@ -265,7 +321,8 @@ class ServingEngine:
         # table's length stays plen, so decode overwrites them in turn
         self.pool.table(req.id).length = plen
         _kv.note_pages_written(self.pool.pages_needed(plen))
-        tok = int(greedy_sample(logits)[0])
+        tok = int(self._sample_impl(logits, self._tensor([req.id]),
+                                    self._tensor([plen]))[0])
         done_at = self.clock()
         req.prefill_at = done_at
         self._counts["prefills"] += 1
@@ -278,13 +335,45 @@ class ServingEngine:
         if not active:
             return 0
         t0 = self.clock()
+        active, args = self._decode_inputs(active)
+        if not active:
+            return 0
+        if self._decode_graph is not None:
+            toks = self._decode_graph(*args)  # waits for the device
+        else:
+            tables, index, tokens, rids, positions = map(self._tensor, args)
+            if self.paged_decode:
+                toks = self._paged_decode_impl(tables, index, tokens, rids,
+                                               positions)
+            else:
+                toks = self._sample_impl(
+                    self._step_impl(tables, index, tokens, None), rids,
+                    positions)
+            toks = toks.tolist()  # waits for the device
+        now = self.clock()
+        self._counts["decode_steps"] += 1
+        self._decode_s.append(now - t0)
+        for slot, req in active:
+            self.pool.table(req.id).length += 1  # fed token's K/V written
+            self._append_token(req, int(toks[slot]), now)
+        return len(active)
+
+    def _decode_inputs(self, active):
+        """Grow each active sequence by the fed token's page, retire what
+        an overcommitted pool cannot hold, and build the step's host
+        arrays ``(page_tables, lengths, tokens, request_ids,
+        positions)``: the fed token's K/V lands at index ``length`` and
+        its successor is sampled at position ``length + 1``; idle slots
+        ride along on the scratch page with request id and position 0.
+        Returns the slots still active and the arrays."""
         n = self.batcher.num_slots
         seq_ids = [None] * n
         tokens = np.zeros((n, 1), np.int64)
         index = np.zeros(n, np.int32)
+        rids = np.zeros(n, np.int32)
+        positions = np.zeros(n, np.int32)
         evicted = []
         for slot, req in active:
-            # the fed token's K/V lands at index ``length``
             try:
                 self.pool.ensure(req.id, self.pool.table(req.id).length + 1)
             except OutOfPages:
@@ -294,26 +383,13 @@ class ServingEngine:
             seq_ids[slot] = req.id
             tokens[slot, 0] = req.tokens[-1]
             index[slot] = self.pool.table(req.id).length
+            rids[slot] = req.id
+            positions[slot] = index[slot] + 1
         for req in evicted:
             self._retire(req, "evicted", self.clock())
         active = [(s, r) for s, r in active if r.slot is not None]
-        if not active:
-            return 0
-        tables = self.pool.gather_indices(seq_ids)
-        if self.paged_decode:
-            toks = self._paged_decode_impl(tables, self._tensor(index),
-                                           self._tensor(tokens))
-        else:
-            toks = greedy_sample(self._step_impl(
-                tables, self._tensor(index), self._tensor(tokens), None))
-        toks = toks.tolist()  # waits for the device
-        now = self.clock()
-        self._counts["decode_steps"] += 1
-        self._decode_s.append(now - t0)
-        for slot, req in active:
-            self.pool.table(req.id).length += 1  # fed token's K/V written
-            self._append_token(req, int(toks[slot]), now)
-        return len(active)
+        return active, (self.pool.table_rows(seq_ids), index, tokens, rids,
+                        positions)
 
     def _append_token(self, req: Request, tok: int, now: float) -> None:
         """Account one generated token; retire the request on EOS, budget
@@ -362,6 +438,8 @@ class ServingEngine:
                 "pool": self.pool.utilization(),
                 "max_seq_len": self.max_seq_len,
                 "sampling": self.sampling,
+                "top_k": self.top_k,
+                "temperature": self.temperature,
                 "paged_decode": self.paged_decode,
                 "fused_sampling": self._fused_sampling,
                 "device": str(self.device),

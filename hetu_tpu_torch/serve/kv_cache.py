@@ -32,6 +32,7 @@ from __future__ import annotations
 import bisect
 import dataclasses
 
+import numpy as np
 import torch
 
 from hetu_tpu_torch.core.device import resolve_device
@@ -257,16 +258,21 @@ class KVCachePool:
 
     # -- the fixed-shape bridge --------------------------------------------
 
+    def table_rows(self, seq_ids) -> np.ndarray:
+        """``(batch, pages_per_seq)`` int32 page tables on the host,
+        padded with the scratch page; ``None`` entries (idle slots) become
+        all-scratch rows."""
+        out = np.full((len(seq_ids), self.pages_per_seq), SCRATCH_PAGE,
+                      np.int32)
+        for row, sid in zip(out, seq_ids):
+            if sid is not None:
+                pages = self._tables[sid].pages
+                row[:len(pages)] = pages
+        return out
+
     def gather_indices(self, seq_ids) -> torch.Tensor:
-        """``(batch, pages_per_seq)`` int32 page tables on the pool's
-        device, padded with the scratch page; ``None`` entries (idle
-        slots) become all-scratch rows."""
-        rows = []
-        for sid in seq_ids:
-            pages = [] if sid is None else self._tables[sid].pages
-            rows.append(pages + [SCRATCH_PAGE] *
-                        (self.pages_per_seq - len(pages)))
-        return torch.tensor(rows, dtype=torch.int32).to(self.device)
+        """:meth:`table_rows` as a tensor on the pool's device."""
+        return torch.from_numpy(self.table_rows(seq_ids)).to(self.device)
 
     def commit(self, k, v) -> None:
         """Adopt the pool tensors a step returned (the same tensors, since

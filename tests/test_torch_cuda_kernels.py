@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain versions on the card, at
-small shapes, plus one tiny engine run through both serving kernels and
+small shapes, plus one tiny engine run through both serving kernels,
+the threefry bits and the samplers on the card against the CPU's, a
+replay of the captured decode graph against the eager step, and
 one tiny training run through the flash and LM-head cross-entropy
 kernels, the fused residual + dropout + LN kernels with one tiny
 BERT run through them, and the ring's flash block kernels with one tiny
@@ -257,6 +259,106 @@ def test_tiny_engine_runs_both_kernels(cuda):
         else:
             assert pd.launch_count() == lh.launch_count() == 0
     assert runs[0] == runs[1]
+
+
+@pytest.mark.parametrize("shape", [(), (50257,), (8, 300)])
+def test_device_random_bits_and_uniform_equal_the_cpus(cuda, shape):
+    """The threefry hash and the uniform built on it run on the card
+    bitwise as on the CPU, for one key and for a batch of keys; the
+    Gumbel field within 2e-6 of the CPU's (``torch.log`` on each)."""
+    from hetu_tpu_torch.core import prng
+    from hetu_tpu_torch.ops import random as R
+    keys = prng.fold_in_tensor(prng.key(3), torch.arange(8) * 977 + 5)
+    for k in (keys[0], keys):
+        bits = prng.random_bits(k.to(cuda), shape)
+        assert torch.equal(bits.cpu(), prng.random_bits(k, shape))
+        for lo, hi in ((torch.finfo(torch.float32).tiny, 1.0), (-3.5, 7.25)):
+            u = R._uniform(k.to(cuda), shape, torch.float32, lo, hi)
+            ref = R._uniform(k, shape, torch.float32, lo, hi)
+            assert torch.equal(u.cpu().view(torch.int32),
+                               ref.view(torch.int32))
+        g = R._gumbel(k.to(cuda), shape)
+        assert (g.cpu() - R._gumbel(k, shape)).abs().max() <= 2e-6
+    data = torch.tensor([0, 1, -1, 2**31 - 1, -2**31], dtype=torch.int32)
+    assert torch.equal(prng.fold_in_tensor(keys[:5].to(cuda),
+                                           data.to(cuda)).cpu(),
+                       prng.fold_in_tensor(keys[:5], data))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["temperature", "top_k"])
+def test_lm_head_sample_tokens_matches_its_plain_route(cuda, dtype, mode):
+    """On the card, ``lm_head_sample_tokens`` against the plain version fed
+    the same Gumbel field (temperature) or the same candidates (top-k):
+    tokens equal wherever the two best perturbed scores are separated by
+    more than the kernel's 1e-4 value tolerance."""
+    from hetu_tpu_torch.core import prng
+    from hetu_tpu_torch.ops import random as R
+    g = torch.Generator().manual_seed(5)
+    N, E, V, T = 8, 768, 50257, 0.8
+    w = (torch.randn((V, E), generator=g) * 0.02).to(cuda, dtype)
+    h = torch.randn((N, E), generator=g).to(cuda, dtype)
+    keys = prng.fold_in_tensor(prng.key(1), torch.arange(N)).to(cuda)
+    got = lh.lm_head_sample_tokens(h, w, mode=mode, top_k=5, temperature=T,
+                                   keys=keys)
+    lh.reset_launch_count()
+    if mode == "temperature":
+        field = R._gumbel(keys, (V,))
+        vals, idx = lh.lm_head_sample_plain(h, w, k=2, gumbel=field,
+                                            temperature=T)
+        ref, sep = idx[:, 0], vals[:, 0] - vals[:, 1] > 1e-4
+    else:
+        vals, idx = lh.lm_head_sample_plain(h, w, k=5)
+        scores = R._gumbel(keys, (5,)) + vals / T
+        top = torch.sort(scores, descending=True).values
+        ref = torch.gather(idx, 1, R.greedy_sample(scores).long()[:, None])
+        ref, sep = ref[:, 0], top[:, 0] - top[:, 1] > 1e-4
+    assert lh.launch_count() == 0
+    assert sep.sum() >= N - 1
+    assert torch.equal(got[sep], ref[sep])
+
+
+def _graph_vs_eager(eng):
+    """The engine's next decode step through its captured graph and
+    through the eager impl from the same pool: tokens and pool bytes."""
+    args = eng._decode_inputs(eng.batcher.active())[1]
+    k0, v0 = eng.pool.k.clone(), eng.pool.v.clone()
+    replayed = eng._decode_graph(*args)
+    kg, vg = eng.pool.k.clone(), eng.pool.v.clone()
+    eng.pool.k.copy_(k0)
+    eng.pool.v.copy_(v0)
+    eager = eng._paged_decode_impl(*map(eng._tensor, args)).tolist()
+    same = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+               for a, b in ((kg, eng.pool.k), (vg, eng.pool.v)))
+    return replayed, eager, same, not torch.equal(kg.view(torch.uint8),
+                                                  k0.view(torch.uint8))
+
+
+@pytest.mark.parametrize("mode", ["greedy", "temperature", "top_k"])
+def test_decode_graph_replay_equals_the_eager_step(cuda, mode):
+    """After the first decode step captured the graph, a replay gives the
+    eager step's tokens and writes the same pool bytes; the launch
+    counters show both kernels on every replayed step."""
+    from hetu_tpu_torch import GPT, GPTConfig, ServingEngine
+    model = GPT(GPTConfig(vocab_size=300, hidden_size=64, num_layers=2,
+                          num_heads=2, max_seq_len=64), device=cuda,
+                generator=torch.Generator().manual_seed(0))
+    eng = ServingEngine(model, num_slots=2, page_size=8,
+                        prompt_buckets=(8, 32), sampling=mode, top_k=5,
+                        temperature=0.8, device=cuda)
+    pd.reset_launch_count()
+    lh.reset_launch_count()
+    for p in ([1, 2, 3], list(range(10, 30))):
+        eng.submit(p, max_new_tokens=12)
+    for _ in range(4):
+        eng.step()
+    steps = eng.stats()["decode_steps"]
+    assert eng._decode_graph.captured and steps >= 2
+    assert pd.launch_count() == 2 * steps and lh.launch_count() == steps
+    replayed, eager, same_pool, wrote = _graph_vs_eager(eng)
+    assert replayed == eager and same_pool and wrote
+    eng.run_until_idle()
+    assert eng.stats()["requests"]["completed"] == 2
 
 
 def _rel_err(x, ref):

@@ -193,3 +193,58 @@ def test_port_order_where_lax_top_k_differs(logits, port, top_k):
         np.asarray(greedy_sample(lg)))
     ref_idx = jax.lax.top_k(lg, len(logits))[1]
     np.testing.assert_array_equal(np.asarray(ref_idx), [top_k, top_k])
+
+
+def _row_keys(N, seed=0):
+    """Per-row keys as the serving engine derives them, in both forms."""
+    keys = jax.vmap(lambda r, p: jax.random.fold_in(
+        jax.random.fold_in(jax.random.PRNGKey(seed), r), p))(
+        jnp.arange(N), jnp.arange(N) + 9)
+    words = torch.from_numpy(
+        np.asarray(jax.random.key_data(keys)).astype(np.int64))
+    return keys, words
+
+
+@pytest.mark.parametrize("mode,top_k,T", [
+    ("greedy", 5, 1.0), ("temperature", 5, 0.8), ("temperature", 5, 1.7),
+    ("top_k", 5, 0.8), ("top_k", 1, 0.8), ("top_k", 128, 1.2),
+    ("temperature", 5, 0.0), ("top_k", 5, -1.0)])
+@pytest.mark.parametrize("N,E,V", [(8, 32, 300), (3, 16, 1000)])
+def test_sample_tokens_equal_pallas(mode, top_k, T, N, E, V):
+    """``lm_head_sample_tokens`` against ``lm_head_sample_pallas(...,
+    interpret=True)`` with the same per-row keys: tokens equal (T <= 0 is
+    greedy in both)."""
+    h, w, b = _inputs(N, E, V, seed=N + V)
+    keys, words = _row_keys(N, seed=V)
+    ref = np.asarray(lm_head_sample_pallas(
+        jnp.asarray(h), jnp.asarray(w), bias=jnp.asarray(b), mode=mode,
+        top_k=top_k, temperature=T, keys=keys, interpret=True))
+    got = lh.lm_head_sample_tokens(
+        torch.from_numpy(h), torch.from_numpy(np.ascontiguousarray(w.T)),
+        bias=torch.from_numpy(b), mode=mode, top_k=top_k, temperature=T,
+        keys=words)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (N,)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_sample_tokens_refusals():
+    h, w, _ = _inputs(2, 8, 200)
+    th, tw = torch.from_numpy(h), torch.from_numpy(np.ascontiguousarray(w.T))
+    _, words = _row_keys(2)
+    with pytest.raises(ValueError, match="unknown sampling mode"):
+        lh.lm_head_sample_tokens(th, tw, mode="nucleus", keys=words)
+    for mode in ("temperature", "top_k"):
+        with pytest.raises(ValueError, match="keys"):
+            lh.lm_head_sample_tokens(th, tw, mode=mode)
+    for k in (0, 129):
+        with pytest.raises(ValueError, match="top_k"):
+            lh.lm_head_sample_tokens(th, tw, mode="top_k", top_k=k,
+                                     keys=words)
+    # k above V is clamped to V first, as lax.top_k needs
+    got = lh.lm_head_sample_tokens(th[:, :8], tw[:100], mode="top_k",
+                                   top_k=1000, keys=words)
+    assert tuple(got.shape) == (2,)
+    # a greedy collapse needs no keys
+    greedy = lh.lm_head_greedy(th, tw)
+    assert torch.equal(lh.lm_head_sample_tokens(
+        th, tw, mode="temperature", temperature=0.0), greedy)

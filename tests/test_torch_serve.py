@@ -1,7 +1,8 @@
-"""The port's ServingEngine: greedy token streams equal to the JAX
-package's engine with the same (bridged) weights on a fixed prompt set
-(fp32, virtual clock), bitwise reproducibility and batch invariance
-within the port, the paged and gather decode paths agreeing, the pool's
+"""The port's ServingEngine: greedy, temperature and top-k token streams
+equal to the JAX package's engine with the same (bridged) weights and
+seed on a fixed prompt set (fp32, virtual clock), bitwise
+reproducibility and batch invariance within the port, the paged and
+gather decode paths and the fused and unfused samplers agreeing, the pool's
 refcount / free-list invariants after a run, and the scheduler's
 rejections, deadlines and a request that fills the context."""
 
@@ -118,10 +119,100 @@ def test_pool_invariants_hold_during_and_after_a_run(port_model):
     assert eng.stats()["requests"]["completed"] == len(PROMPTS)
 
 
-@pytest.mark.parametrize("mode", ["temperature", "top_k"])
-def test_stochastic_sampling_modes_raise(port_model, mode):
-    with pytest.raises(NotImplementedError, match="threefry"):
-        ServingEngine(port_model, sampling=mode, device="cpu")
+STOCHASTIC = ["temperature", "top_k"]
+SAMPLING = dict(top_k=5, temperature=0.8, seed=3)
+
+
+def _engine(model, mode, **kw):
+    return ServingEngine(model, clock=VirtualClock(), device="cpu",
+                         sampling=mode, **{**SAMPLING, **ENGINE, **kw})
+
+
+@pytest.mark.parametrize("mode", STOCHASTIC)
+def test_stochastic_streams_equal_the_jax_engine(mode):
+    """Keys ``fold_in(fold_in(key(seed), rid), pos)`` on both sides: the
+    Gumbel fields agree within an ulp and every token is equal."""
+    jm, tm = _models()
+    ref = _run(JaxEngine(jm, clock=VirtualClock(), sampling=mode,
+                         **SAMPLING, **ENGINE))
+    got = _run(_engine(tm, mode))
+    assert got == ref
+    assert [len(t) for t in got] == BUDGETS
+
+
+@pytest.mark.parametrize("mode", STOCHASTIC)
+def test_stochastic_same_seed_is_bitwise_and_batch_invariant(port_model,
+                                                             mode):
+    a = _run(_engine(port_model, mode))
+    assert _run(_engine(port_model, mode)) == a
+    assert _run(_engine(port_model, mode, seed=4)) != a
+    for i in (2, 4):   # alone under its batched request id
+        eng = _engine(port_model, mode)
+        h = eng.submit(PROMPTS[i], BUDGETS[i], request_id=i)
+        eng.run_until_idle()
+        assert h.tokens == a[i]
+    eng = _engine(port_model, mode)
+    eng.submit([1, 2], 3, request_id=7)
+    with pytest.raises(ValueError, match="in flight"):
+        eng.submit([3], 3, request_id=7)
+    assert eng.submit([3], 3).request_id == 8
+
+
+@pytest.mark.parametrize("paged,fused", [(False, False), (True, False),
+                                         (False, True)])
+@pytest.mark.parametrize("mode", STOCHASTIC)
+def test_stochastic_decode_paths_agree(port_model, mode, paged, fused):
+    base = _run(_engine(port_model, mode))
+    other = _run(_engine(port_model, mode, paged_decode=paged,
+                         fused_sampling=fused))
+    assert other == base
+
+
+def test_wide_top_k_samples_from_materialised_logits(port_model):
+    """``fused_sampling=None`` keeps the fused kernel unless top-k asks
+    for more than its 128 candidates; top_k=200 clamps to the vocabulary
+    (128) and samples unfused, with the same streams as forcing it."""
+    wide = _engine(port_model, "top_k", top_k=200)
+    assert wide.stats()["fused_sampling"] is True     # min(200, V) <= 128
+    cfg = dict(CFG, vocab_size=256)
+    set_random_seed(1)
+    big = GPT(GPTConfig(**cfg), device="cpu")
+    eng = _engine(big, "top_k", top_k=200)
+    assert eng.stats()["fused_sampling"] is False
+    assert _engine(big, "top_k", top_k=128).stats()["fused_sampling"]
+    assert _engine(big, "temperature").stats()["fused_sampling"]
+    assert _run(eng) == _run(_engine(big, "top_k", top_k=200,
+                                     fused_sampling=False))
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(sampling="nucleus"), "sampling mode"),
+    (dict(sampling="top_k", top_k=0), "top_k must be")])
+def test_invalid_sampling_raises(port_model, kw, match):
+    with pytest.raises(ValueError, match=match):
+        ServingEngine(port_model, device="cpu", **kw)
+
+
+def test_temperature_mode_is_not_top_k_truncated(port_model):
+    """sampling='temperature' draws from the full distribution, not a
+    top-k-truncated one (the reference's ``tests/test_serve.py``)."""
+    def collect(mode):
+        eng = ServingEngine(port_model, num_slots=2, page_size=8,
+                            max_seq_len=64, prompt_buckets=(8,),
+                            sampling=mode, top_k=1, temperature=3.0,
+                            seed=0, device="cpu", clock=VirtualClock())
+        hs = [eng.submit([i + 1, i + 2], 8) for i in range(8)]
+        eng.run_until_idle()
+        return [t for h in hs for t in h.tokens]
+
+    assert len(set(collect("temperature"))) > len(set(collect("top_k")))
+
+
+def test_greedy_collapse_at_zero_temperature(port_model):
+    greedy = _run(ServingEngine(port_model, clock=VirtualClock(),
+                                device="cpu", **ENGINE))
+    for mode in STOCHASTIC:
+        assert _run(_engine(port_model, mode, temperature=0.0)) == greedy
 
 
 def test_rejections_deadlines_and_a_full_context(port_model):
