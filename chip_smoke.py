@@ -1467,26 +1467,20 @@ def check_sample_tokens(lh, N=SERVE_SLOTS, E=768, V=50257):
     the same candidates: tokens equal wherever the two best perturbed
     scores are separated by more than the kernel's 1e-4 value tolerance."""
     from hetu_tpu_torch.core import prng
-    from hetu_tpu_torch.ops import random as rnd
     g = torch.Generator().manual_seed(11)
     w = (torch.randn((V, E), generator=g) * 0.02).cuda()
     h = torch.randn((N, E), generator=g).cuda()
     keys = prng.fold_in_tensor(prng.key(1), torch.arange(N)).cuda()
     T = SERVE_TEMPERATURE
     for mode in ("temperature", "top_k"):
+        lh.reset_launch_count()
         got = lh.lm_head_sample_tokens(h, w, mode=mode, top_k=SERVE_TOP_K,
                                        temperature=T, keys=keys)
-        if mode == "temperature":
-            vals, idx = lh.lm_head_sample_plain(
-                h, w, k=2, gumbel=rnd._gumbel(keys, (V,)), temperature=T)
-            ref, sep = idx[:, 0], vals[:, 0] - vals[:, 1] > 1e-4
-        else:
-            vals, idx = lh.lm_head_sample_plain(h, w, k=SERVE_TOP_K)
-            scores = rnd._gumbel(keys, (SERVE_TOP_K,)) + vals / T
-            top = torch.sort(scores, descending=True).values
-            ref = torch.gather(idx, 1,
-                               rnd.greedy_sample(scores).long()[:, None])
-            ref, sep = ref[:, 0], top[:, 0] - top[:, 1] > 1e-4
+        assert lh.launch_count() == 1, \
+            f"lm_head_sample_tokens {mode} did not launch the kernel once"
+        ref, gap = lh._sample_tokens_plain(
+            h, w, mode=mode, top_k=SERVE_TOP_K, temperature=T, keys=keys)
+        sep = gap > 1e-4
         same = int((got == ref).sum())
         print(f"lm_head_sample_tokens {mode} (k={SERVE_TOP_K}, T={T}): "
               f"{same}/{N} tokens equal to the plain route, {int(sep.sum())}"
@@ -1495,34 +1489,19 @@ def check_sample_tokens(lh, N=SERVE_SLOTS, E=768, V=50257):
             f"lm_head_sample_tokens {mode} differs from its plain route"
 
 
-def graph_vs_eager(eng):
-    """The engine's next decode step through its captured graph and
-    through the eager impl, from the same pool: ``(tokens equal, pool
-    bytes equal)``; the pool is left as the eager step wrote it."""
-    args = eng._decode_inputs(eng.batcher.active())[1]
-    k0, v0 = eng.pool.k.clone(), eng.pool.v.clone()
-    replayed = eng._decode_graph(*args)
-    kg, vg = eng.pool.k.clone(), eng.pool.v.clone()
-    eng.pool.k.copy_(k0)
-    eng.pool.v.copy_(v0)
-    eager = eng._paged_decode_impl(*map(eng._tensor, args)).tolist()
-    same = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
-               for a, b in ((kg, eng.pool.k), (vg, eng.pool.v)))
-    assert not torch.equal(kg.view(torch.uint8), k0.view(torch.uint8))
-    return replayed == eager, same
-
-
 def check_replay(engine, prompts, budget, **kw):
     """Three ticks of the phase's 16 requests (the first decode step
     captures the graph), then one replayed step against the eager impl,
     bitwise in tokens and pool bytes."""
+    from hetu_tpu_torch.serve.graph import _replay_vs_eager
     eng = engine(**kw)
     for p in prompts:
         eng.submit(p, max_new_tokens=budget)
     for _ in range(3):
         eng.step()
     assert eng._decode_graph.captured
-    toks, pool = graph_vs_eager(eng)
+    toks, pool, wrote = _replay_vs_eager(eng)
+    assert wrote, "the replayed decode step wrote no K/V"
     print(f"graph replay vs eager impl ({kw.get('sampling', 'greedy')}): "
           f"tokens {'equal' if toks else 'DIFFER'}, pool bytes "
           f"{'equal' if pool else 'DIFFER'} (bitwise)")

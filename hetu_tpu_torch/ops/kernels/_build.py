@@ -11,12 +11,18 @@ pointer and the stream are ``c_void_p``, and every C entry returns
 ``cudaGetLastError()`` after its launch, which :func:`check` turns into an
 exception.
 
+Every wrapper's launch counter lives here, in one registry keyed by the
+wrapper's name: a wrapper calls :func:`count_launch` where it launches
+its kernel and nowhere else, and a CUDA graph's replay adds the launches
+its capture counted (:func:`launch_counts`, :func:`add_launches`).
+
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc`` or a card.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -28,7 +34,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["KernelUnavailable", "build", "load_library", "check",
-           "build_log", "SRC_DIR", "BUILD_DIR"]
+           "build_log", "SRC_DIR", "BUILD_DIR", "count_launch",
+           "launch_count", "launch_counts", "add_launches", "reset_launches"]
 
 _PKG = Path(__file__).resolve().parents[2]
 SRC_DIR = _PKG / "csrc"
@@ -39,6 +46,34 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _lib = None
 _log = ""
+_launches = collections.Counter()
+
+
+def count_launch(name: str) -> None:
+    """Count one launch by the wrapper ``name``."""
+    _launches[name] += 1
+
+
+def launch_count(name: str) -> int:
+    """The wrapper ``name``'s launches since its last reset."""
+    return _launches[name]
+
+
+def launch_counts() -> dict:
+    """Every wrapper's launches since its last reset, by name."""
+    return dict(_launches)
+
+
+def add_launches(deltas: dict) -> None:
+    """Add ``deltas`` (name -> launches, may be negative) to the counts:
+    a CUDA graph's replay launches what its capture counted."""
+    _launches.update(deltas)
+
+
+def reset_launches(*names: str) -> None:
+    """Set the named wrappers' counts to 0."""
+    for n in names:
+        _launches.pop(n, None)
 
 
 class KernelUnavailable(RuntimeError):

@@ -50,40 +50,34 @@ __all__ = ["flash_attention", "flash_attention_bhsd", "flash_attn_fn",
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 96, 128)
-_fwd_launches = 0
-_bwd_launches = 0
-_block_fwd_launches = 0
-_block_bwd_launches = 0
 
 
 def fwd_launch_count() -> int:
     """Forward kernel launches (one per call) since the last reset."""
-    return _fwd_launches
+    return _build.launch_count("flash_fwd")
 
 
 def bwd_launch_count() -> int:
     """Backward launches (one call of the C entry, which runs the delta,
     dK/dV and dQ kernels) since the last reset."""
-    return _bwd_launches
+    return _build.launch_count("flash_bwd")
 
 
 def block_fwd_launch_count() -> int:
     """Block-forward launches (:func:`flash_block_fwd`) since the last
     reset; they do not count in :func:`fwd_launch_count`."""
-    return _block_fwd_launches
+    return _build.launch_count("flash_block_fwd")
 
 
 def block_bwd_launch_count() -> int:
     """Block-backward launches (one call of the C entry, which runs the
     dK/dV and dQ kernels) since the last reset."""
-    return _block_bwd_launches
+    return _build.launch_count("flash_block_bwd")
 
 
 def reset_launch_count() -> None:
-    global _fwd_launches, _bwd_launches, _block_fwd_launches, \
-        _block_bwd_launches
-    _fwd_launches = _bwd_launches = 0
-    _block_fwd_launches = _block_bwd_launches = 0
+    _build.reset_launches("flash_fwd", "flash_bwd", "flash_block_fwd",
+                          "flash_block_bwd")
 
 
 def _mask(Sq, Sk, causal, device):
@@ -187,10 +181,9 @@ def flash_fwd(q, k, v, *, causal: bool, scale: float):
     O in q's type, LSE ``(B, H, Sq)`` fp32."""
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal=causal, scale=scale)
-    global _fwd_launches
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     o = _launch_fwd(q, k, v, lse, causal, scale)
-    _fwd_launches += 1
+    _build.count_launch("flash_fwd")
     return o, lse
 
 
@@ -201,11 +194,10 @@ def flash_block_fwd(q, k, v, *, scale: float, causal: bool = False):
     if q.device.type == "cpu":
         o, lse = flash_fwd_plain(q, k, v, causal=causal, scale=scale)
         return o, lse[..., None]
-    global _block_fwd_launches
     lse = torch.empty((*q.shape[:3], 1), dtype=torch.float32,
                       device=q.device)
     o = _launch_fwd(q, k, v, lse, causal, scale)
-    _block_fwd_launches += 1
+    _build.count_launch("flash_block_fwd")
     return o, lse
 
 
@@ -214,7 +206,6 @@ def flash_bwd(q, k, v, o, lse, do, *, causal: bool, scale: float):
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                scale=scale)
-    global _bwd_launches
     lib = _build.load_library()
     _check_qkv(q, k, v)
     _check({"o": o, "lse": lse, "do": do}, q)
@@ -234,7 +225,7 @@ def flash_bwd(q, k, v, o, lse, do, *, causal: bool, scale: float):
         D, int(causal), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_bwd")
-    _bwd_launches += 1
+    _build.count_launch("flash_bwd")
     return dq, dk, dv
 
 
@@ -246,7 +237,6 @@ def flash_block_bwd(q, k, v, do, lse, delta, *, scale: float,
     if q.device.type == "cpu":
         return flash_block_bwd_plain(q, k, v, do, lse, delta, causal=causal,
                                      scale=scale)
-    global _block_bwd_launches
     lib = _build.load_library()
     _check_qkv(q, k, v)
     _check({"do": do, "lse": lse, "delta": delta}, q)
@@ -265,7 +255,7 @@ def flash_block_bwd(q, k, v, do, lse, delta, *, scale: float,
         dk.data_ptr(), dv.data_ptr(), B, H, Sq, k.shape[2], D, int(causal),
         float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_block_bwd")
-    _block_bwd_launches += 1
+    _build.count_launch("flash_block_bwd")
     return dq, dk, dv
 
 

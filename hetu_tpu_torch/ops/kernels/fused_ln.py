@@ -44,8 +44,6 @@ __all__ = ["fused_residual_dropout_ln", "fused_ln_fwd", "fused_ln_bwd",
            "reset_launch_count"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_fwd_launches = 0
-_bwd_launches = 0
 
 # Most blocks of the backward's persistent grid: one wave of 8 blocks of
 # 128 threads on each of an H100's 132 SMs.  A constant, not the device's
@@ -64,18 +62,17 @@ def bwd_parts(T: int) -> int:
 
 def fwd_launch_count() -> int:
     """Forward launches since the last reset."""
-    return _fwd_launches
+    return _build.launch_count("fused_ln_fwd")
 
 
 def bwd_launch_count() -> int:
     """Backward launches (one C call: the rows, then the partial sums)
     since the last reset."""
-    return _bwd_launches
+    return _build.launch_count("fused_ln_bwd")
 
 
 def reset_launch_count() -> None:
-    global _fwd_launches, _bwd_launches
-    _fwd_launches = _bwd_launches = 0
+    _build.reset_launches("fused_ln_fwd", "fused_ln_bwd")
 
 
 def _keep_y(rate: float, dtype) -> float:
@@ -168,7 +165,6 @@ def fused_ln_fwd(x2, y2, scale, bias, *, words=(0, 0), thresh: int = 0,
     if x2.device.type == "cpu":
         return fused_ln_fwd_plain(x2, y2, scale, bias, words=words,
                                   thresh=thresh, keep_y=keep_y, eps=eps)
-    global _fwd_launches
     lib = _build.load_library()
     T, D = x2.shape[0], x2.shape[-1]
     _check(lib, x2, {"x": x2, "y": y2},
@@ -182,7 +178,7 @@ def fused_ln_fwd(x2, y2, scale, bias, *, words=(0, 0), thresh: int = 0,
         T, D, words[0], words[1], thresh, keep_y, eps,
         torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check(err, "fused_ln_fwd")
-    _fwd_launches += 1
+    _build.count_launch("fused_ln_fwd")
     return out, mean, rstd
 
 
@@ -194,7 +190,6 @@ def fused_ln_bwd(dout, x2, y2, scale, mean, rstd, *, words=(0, 0),
         return fused_ln_bwd_plain(dout, x2, y2, scale, mean, rstd,
                                   words=words, thresh=thresh, keep_y=keep_y,
                                   keep_g=keep_g)
-    global _bwd_launches
     lib = _build.load_library()
     T, D = x2.shape[0], x2.shape[-1]
     _check(lib, x2, {"dout": dout, "x": x2, "y": y2},
@@ -212,7 +207,7 @@ def fused_ln_bwd(dout, x2, y2, scale, mean, rstd, *, words=(0, 0),
         words[1], thresh, keep_y, keep_g,
         torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check(err, "fused_ln_bwd")
-    _bwd_launches += 1
+    _build.count_launch("fused_ln_bwd")
     return dx, dy, dsb[0], dsb[1]
 
 

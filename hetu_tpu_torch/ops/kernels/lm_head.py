@@ -31,8 +31,8 @@ samplers draw them from the same logits.
 :func:`lm_head_sample` runs :func:`lm_head_sample_plain` only when its
 inputs lie on the CPU.  For CUDA tensors it launches the kernel or
 raises; there is no fallback.  ``launch_count()`` counts its calls that
-launched the kernel, and :func:`add_launches` adds the launches a CUDA
-graph's replay made (a captured call launches nothing at capture).
+launched the kernel (``_build``'s registry, which a CUDA graph's replay
+advances too).
 """
 
 from __future__ import annotations
@@ -40,33 +40,25 @@ from __future__ import annotations
 import torch
 
 from hetu_tpu_torch.ops.kernels import _build
-from hetu_tpu_torch.ops.random import _categorical, _gumbel, _top_k
+from hetu_tpu_torch.ops.random import (_categorical, _gumbel, _top_k,
+                                       greedy_sample)
 
 __all__ = ["lm_head_sample", "lm_head_sample_plain", "lm_head_greedy",
-           "lm_head_sample_tokens", "launch_count", "reset_launch_count",
-           "add_launches"]
+           "lm_head_sample_tokens", "launch_count", "reset_launch_count"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_K = 128
-_launches = 0
 _block_counts = {}
 
 
 def launch_count() -> int:
     """Kernel launches (one per call) since the last reset."""
-    return _launches
+    return _build.launch_count("lm_head_sample")
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    _build.reset_launches("lm_head_sample")
 
-
-def add_launches(n: int) -> None:
-    """Count ``n`` launches made by replaying a CUDA graph that captured
-    calls of :func:`lm_head_sample`."""
-    global _launches
-    _launches += n
 
 
 def _blocks(lib, dtype: int, E: int, V: int, device) -> int:
@@ -119,7 +111,6 @@ def lm_head_sample(hidden, weight, *, k: int = 1, bias=None, gumbel=None,
     if hidden.device.type == "cpu":
         return lm_head_sample_plain(hidden, weight, k=k, bias=bias,
                                     gumbel=gumbel, temperature=temperature)
-    global _launches
     lib = _build.load_library()
     N, E = hidden.shape
     V = weight.shape[0]
@@ -160,7 +151,7 @@ def lm_head_sample(hidden, weight, *, k: int = 1, bias=None, gumbel=None,
         part_i.data_ptr(), vals.data_ptr(), idx.data_ptr(),
         torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(err, "lm_head_sample")
-    _launches += 1
+    _build.count_launch("lm_head_sample")
     return vals, idx
 
 
@@ -210,3 +201,24 @@ def lm_head_sample_tokens(hidden, weight, *, bias=None, mode: str = "greedy",
     vals, idx = lm_head_sample(hidden, weight, k=k, bias=bias)
     choice = _categorical(keys, vals / temperature)
     return torch.gather(idx, 1, choice.long()[:, None])[:, 0]
+
+
+def _sample_tokens_plain(hidden, weight, *, mode: str, top_k: int,
+                         temperature: float, keys):
+    """:func:`lm_head_sample_tokens`'s two stochastic modes through
+    :func:`lm_head_sample_plain`, on the same Gumbel field or the same
+    candidates, on the inputs' device.  Returns ``(tokens, gap)``: each
+    row's token and the gap between its two best perturbed scores, which
+    says where the kernel's value tolerance could pick the other one.
+    For the tests and the chip smoke run."""
+    V = weight.shape[0]
+    if mode == "temperature":
+        vals, idx = lm_head_sample_plain(
+            hidden, weight, k=2, gumbel=_gumbel(keys, (V,)),
+            temperature=temperature)
+        return idx[:, 0], vals[:, 0] - vals[:, 1]
+    vals, idx = lm_head_sample_plain(hidden, weight, k=top_k)
+    scores = _gumbel(keys, (top_k,)) + vals / temperature
+    top = torch.sort(scores, dim=-1, descending=True).values
+    tokens = torch.gather(idx, 1, greedy_sample(scores).long()[:, None])
+    return tokens[:, 0], top[:, 0] - top[:, 1]

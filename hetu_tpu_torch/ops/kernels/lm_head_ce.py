@@ -64,25 +64,22 @@ _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FWD_VCHUNK = 1024   # vocab rows per forward block (8 tiles of 128)
 _BWD_VCHUNK = 8192   # most vocab rows per backward chunk
-_fwd_launches = 0
-_bwd_launches = 0
 
 
 def fwd_launch_count() -> int:
     """Forward launches (one C call: partials, then the merge) since the
     last reset."""
-    return _fwd_launches
+    return _build.launch_count("lm_head_ce_fwd")
 
 
 def bwd_launch_count() -> int:
     """Backward launches (one C call: per vocab chunk the t pass, dh and
     dW/db) since the last reset."""
-    return _bwd_launches
+    return _build.launch_count("lm_head_ce_bwd")
 
 
 def reset_launch_count() -> None:
-    global _fwd_launches, _bwd_launches
-    _fwd_launches = _bwd_launches = 0
+    _build.reset_launches("lm_head_ce_fwd", "lm_head_ce_bwd")
 
 
 def _chunk_logits(hf, weight, bias, c0, c1):
@@ -181,7 +178,6 @@ def lm_head_ce_fwd(hidden, weight, labels, *, bias=None, chunk: int = 8192):
     if hidden.device.type == "cpu":
         return lm_head_ce_fwd_plain(hidden, weight, labels, bias=bias,
                                     chunk=chunk)
-    global _fwd_launches
     lib = _build.load_library()
     N, E, V = _check(hidden, weight, labels, bias)
     n_chunks = -(-V // _FWD_VCHUNK)
@@ -195,7 +191,7 @@ def lm_head_ce_fwd(hidden, weight, labels, *, bias=None, chunk: int = 8192):
         V, _FWD_VCHUNK, part.data_ptr(), lse.data_ptr(), ylog.data_ptr(),
         torch.cuda.current_stream(hidden.device).cuda_stream)
     _build.check(err, "lm_head_ce_fwd")
-    _fwd_launches += 1
+    _build.count_launch("lm_head_ce_fwd")
     return lse, ylog
 
 
@@ -207,7 +203,6 @@ def lm_head_ce_bwd(hidden, weight, labels, lse, g, *, bias=None,
     if hidden.device.type == "cpu":
         return lm_head_ce_bwd_plain(hidden, weight, labels, lse, g,
                                     bias=bias, chunk=chunk)
-    global _bwd_launches
     lib = _build.load_library()
     N, E, V = _check(hidden, weight, labels, bias)
     for name, t in (("lse", lse), ("g", g)):
@@ -233,7 +228,7 @@ def lm_head_ce_bwd(hidden, weight, labels, lse, g, *, bias=None,
         None if db is None else db.data_ptr(),
         torch.cuda.current_stream(hidden.device).cuda_stream)
     _build.check(err, "lm_head_ce_bwd")
-    _bwd_launches += 1
+    _build.count_launch("lm_head_ce_bwd")
     return dh, dw, db
 
 

@@ -17,9 +17,8 @@ type.
 :func:`paged_decode_attention` runs :func:`paged_decode_attention_plain`
 only when its inputs lie on the CPU.  For CUDA tensors it launches the
 kernels or raises; there is no fallback.  ``launch_count()`` counts the
-wrapper's calls that launched them, and :func:`add_launches` adds those
-a CUDA graph's replay made (a captured call launches nothing at
-capture).
+wrapper's calls that launched them (``_build``'s registry, which a CUDA
+graph's replay advances too).
 """
 
 from __future__ import annotations
@@ -32,11 +31,10 @@ from hetu_tpu_torch.ops.kernels import _build
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_plain",
            "chunk_plan", "heads_per_block", "launch_count",
-           "reset_launch_count", "add_launches"]
+           "reset_launch_count"]
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_launches = 0
 
 # Positions a chunk holds at least: 64 at GPT-2 small's page of 16 cuts
 # lengths 1..1024 into 47 chunks, 282 blocks of two heads, under one wave
@@ -64,19 +62,12 @@ def heads_per_block(H: int, D: int, itemsize: int) -> int:
 
 def launch_count() -> int:
     """CUDA kernel launches since the last reset."""
-    return _launches
+    return _build.launch_count("paged_decode_attention")
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    _build.reset_launches("paged_decode_attention")
 
-
-def add_launches(n: int) -> None:
-    """Count ``n`` launches made by replaying a CUDA graph that captured
-    calls of :func:`paged_decode_attention`."""
-    global _launches
-    _launches += n
 
 
 def _layer_pools(k_pool, v_pool, layer):
@@ -133,7 +124,6 @@ def paged_decode_attention(q, k_pool, v_pool, page_tables, seq_lengths, *,
         return paged_decode_attention_plain(q, k_pool, v_pool, page_tables,
                                             seq_lengths, layer=layer,
                                             scale=scale)
-    global _launches
     lib = _build.load_library()
     k_l, v_l = _layer_pools(k_pool, v_pool, layer)
     B, H, D = q.shape
@@ -176,5 +166,5 @@ def paged_decode_attention(q, k_pool, v_pool, page_tables, seq_lengths, *,
         heads_per_block(H, D, q.element_size()), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_decode_attention")
-    _launches += 1
+    _build.count_launch("paged_decode_attention")
     return out

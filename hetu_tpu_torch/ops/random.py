@@ -11,10 +11,13 @@ hold them to it), the tokens drawn from them equal on the tested seeds.
 
 A key is a ``(2,)`` tensor of uint32 words in ``int64``, as
 :mod:`hetu_tpu_torch.core.prng` makes it; ``key=None`` draws
-``core.rng.next_key()``.  The draws lie on the key's device; the token
-samplers draw on their logits' device.  The private blocks also take a
-batch of keys ``(n, 2)``: row ``r`` of the result is then drawn from key
-``r`` alone, as ``jax.vmap`` over the keys gives it.
+``core.rng.next_key()``.  The draws (``rand`` to ``randint_sample``) run
+on ``device``, which ``None`` makes the card (``core.device``; pass
+``device="cpu"`` for the CPU), and the key is moved there; the token
+samplers draw on their logits' device.  The private blocks draw on their
+keys' device, and also take a batch of keys ``(n, 2)``: row ``r`` of the
+result is then drawn from key ``r`` alone, as ``jax.vmap`` over the keys
+gives it.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ import math
 
 import torch
 
-from hetu_tpu_torch.core.prng import fold_in_tensor, random_bits
+from hetu_tpu_torch.core.device import resolve_device
+from hetu_tpu_torch.core.prng import fold_in_tensor, key_data, random_bits
 from hetu_tpu_torch.core.rng import next_key
 
 __all__ = [
@@ -44,8 +48,12 @@ _M32 = 0xFFFFFFFF
 _SQRT2 = math.sqrt(2)
 
 
-def _key(key):
-    return next_key() if key is None else key
+def _key(key, device):
+    """``key`` (or ``next_key()`` when None) on the resolved ``device``;
+    a device that cannot be had raises before a key is drawn."""
+    dev = resolve_device(device)
+    k = next_key() if key is None else key
+    return (k if isinstance(k, torch.Tensor) else key_data(k)).to(dev)
 
 
 def _as_dtype(x: float, dtype) -> float:
@@ -112,28 +120,28 @@ def _top_k(x, k: int):
 # -- the reference's ops --------------------------------------------------
 
 
-def rand(shape, dtype=torch.float32, key=None):
+def rand(shape, dtype=torch.float32, key=None, device=None):
     """U[0, 1) samples (reference rand_op)."""
-    return _uniform(_key(key), shape, dtype, 0.0, 1.0)
+    return _uniform(_key(key, device), shape, dtype, 0.0, 1.0)
 
 
 def normal_sample(shape, mean: float = 0.0, stddev: float = 1.0,
-                  dtype=torch.float32, key=None):
+                  dtype=torch.float32, key=None, device=None):
     """``mean + stddev * jax.random.normal``: ``sqrt(2) * erfinv(u)`` of a
     uniform over ``(nextafter(-1, 0), 1)``."""
     _check_float("normal", dtype)
     lo = -(1.0 - torch.finfo(dtype).eps / 2)      # nextafter(-1, 0)
-    u = _uniform(_key(key), shape, dtype, lo, 1.0)
+    u = _uniform(_key(key, device), shape, dtype, lo, 1.0)
     return mean + stddev * (_as_dtype(_SQRT2, dtype) * torch.erfinv(u))
 
 
 def uniform_sample(shape, low: float = 0.0, high: float = 1.0,
-                   dtype=torch.float32, key=None):
-    return _uniform(_key(key), shape, dtype, low, high)
+                   dtype=torch.float32, key=None, device=None):
+    return _uniform(_key(key, device), shape, dtype, low, high)
 
 
 def truncated_normal_sample(shape, mean: float = 0.0, stddev: float = 1.0,
-                            dtype=torch.float32, key=None):
+                            dtype=torch.float32, key=None, device=None):
     """Normal truncated to ±2σ (reference truncated_normal_sample_op):
     ``jax.random.truncated_normal(key, -2, 2)``, ``sqrt(2) * erfinv`` of a
     uniform between ``erf(∓2 / sqrt(2))``, clipped into the open
@@ -142,16 +150,16 @@ def truncated_normal_sample(shape, mean: float = 0.0, stddev: float = 1.0,
     sqrt2 = torch.tensor(_as_dtype(_SQRT2, dtype), dtype=dtype)
     a, b = (float(torch.erf(torch.tensor(x, dtype=dtype) / sqrt2))
             for x in (-2.0, 2.0))
-    u = _uniform(_key(key), shape, dtype, a, b)
+    u = _uniform(_key(key, device), shape, dtype, a, b)
     out = float(sqrt2) * torch.erfinv(u)
     edge = 2.0 - torch.finfo(dtype).eps           # nextafter(2, 0)
     return mean + stddev * torch.clamp(out, -edge, edge)
 
 
-def gumbel_sample(shape, dtype=torch.float32, key=None):
+def gumbel_sample(shape, dtype=torch.float32, key=None, device=None):
     """Standard Gumbel(0,1) samples (reference gumbel_sample_op; noisy MoE
     gates and Gumbel-softmax tricks)."""
-    return _gumbel(_key(key), shape, dtype)
+    return _gumbel(_key(key, device), shape, dtype)
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -163,7 +171,7 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
 
 
 def randint_sample(shape, low: int, high: int, dtype=torch.int32,
-                   key=None):
+                   key=None, device=None):
     """``jax.random.randint``, bitwise: two 32-bit draws from the key's
     two split keys, combined modulo the span (biased a little unless the
     span is a power of 2, as JAX's is).  A narrower type is drawn as
@@ -190,7 +198,8 @@ def randint_sample(shape, low: int, high: int, dtype=torch.int32,
 
     mult = rem(1 << 16, span)
     mult = rem((mult * mult) & _M32, span)
-    k = fold_in_tensor(_key(key), torch.arange(2))    # jax.random.split
+    keys = _key(key, device)
+    k = fold_in_tensor(keys, torch.arange(2, device=keys.device))  # split
     high_bits, low_bits = (random_bits(kk, shape) for kk in k)
     offset = (_mul32(rem(high_bits, span), mult)
               + rem(low_bits, span)) & _M32
@@ -219,7 +228,7 @@ def temperature_sample(logits, temperature: float = 1.0, key=None):
     to :func:`greedy_sample` (the conventional T->0 limit)."""
     if temperature <= 0.0:
         return greedy_sample(logits)
-    return _categorical(_key(key), logits.float() / temperature)
+    return _categorical(_key(key, logits.device), logits.float() / temperature)
 
 
 def top_k_sample(logits, k: int, temperature: float = 1.0, key=None):
@@ -230,5 +239,5 @@ def top_k_sample(logits, k: int, temperature: float = 1.0, key=None):
         return greedy_sample(logits)
     k = min(int(k), logits.shape[-1])
     vals, idx = _top_k(logits.float(), k)
-    choice = _categorical(_key(key), vals / temperature)
+    choice = _categorical(_key(key, logits.device), vals / temperature)
     return torch.gather(idx, -1, choice.long()[..., None])[..., 0]

@@ -175,8 +175,10 @@ class ServingEngine:
         (paged-decode kernel), each layer's new K/V lands with one small
         in-place write, and the next token comes from the fused LM-head
         kernel.  Same keys as :meth:`_sample_impl`, so the streams are
-        the same.  Returns ``(num_slots,)`` int32 tokens.  On CUDA this is
-        what :class:`DecodeGraph` captures."""
+        the same; ``request_ids`` and ``positions`` (device tensors, or
+        host arrays when eager) are read by the stochastic modes only.
+        Returns ``(num_slots,)`` int32 tokens.  On CUDA this is what
+        :class:`DecodeGraph` captures."""
         x, _ = self.model.hidden_states(
             tokens, kv_cache=(self.pool.k, self.pool.v),
             cache_index=lengths, paged_tables=page_tables)
@@ -193,14 +195,16 @@ class ServingEngine:
 
     def _keys(self, request_ids, positions) -> torch.Tensor:
         """Each row's key ``fold_in(fold_in(key(seed), rid), pos)``,
-        derived on the device: the host ships two int vectors, not keys."""
+        derived on the device: the host ships two int vectors (host
+        arrays are copied here), not keys."""
         return fold_in_tensor(fold_in_tensor(self._base_key, request_ids),
                               positions)
 
     def _sample_impl(self, logits, request_ids, positions):
         """Per-row seeded sampling of ``(rows, vocab)`` logits, each row
         from its own key (:meth:`_keys`), so batch composition cannot
-        perturb any request's stream."""
+        perturb any request's stream.  Greedy reads neither the request
+        ids nor the positions, so it never copies them to the device."""
         if self.sampling == "greedy":
             return greedy_sample(logits)
         keys = self._keys(request_ids, positions)
@@ -321,8 +325,7 @@ class ServingEngine:
         # table's length stays plen, so decode overwrites them in turn
         self.pool.table(req.id).length = plen
         _kv.note_pages_written(self.pool.pages_needed(plen))
-        tok = int(self._sample_impl(logits, self._tensor([req.id]),
-                                    self._tensor([plen]))[0])
+        tok = int(self._sample_impl(logits, [req.id], [plen])[0])
         done_at = self.clock()
         req.prefill_at = done_at
         self._counts["prefills"] += 1
@@ -341,7 +344,8 @@ class ServingEngine:
         if self._decode_graph is not None:
             toks = self._decode_graph(*args)  # waits for the device
         else:
-            tables, index, tokens, rids, positions = map(self._tensor, args)
+            tables, index, tokens = map(self._tensor, args[:3])
+            rids, positions = args[3:]     # copied only if a mode reads them
             if self.paged_decode:
                 toks = self._paged_decode_impl(tables, index, tokens, rids,
                                                positions)

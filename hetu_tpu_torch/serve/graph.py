@@ -19,9 +19,10 @@ so both must stay the same tensors for the engine's life; its scratch
 comes from the graph's private memory pool.  A capture that fails
 raises.
 
-The kernels' launch counters are Python integers, advanced when a
-wrapper runs: a capture advances them without launching anything, so the
-capture's increase is taken back and added again on every replay.
+The kernels' launch counters (``ops/kernels/_build.py``'s registry) are
+Python integers, advanced when a wrapper runs: a capture advances them
+without launching anything, so the capture's increase of every counter
+is taken back and added again on every replay.
 """
 
 from __future__ import annotations
@@ -29,12 +30,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hetu_tpu_torch.ops.kernels import lm_head as _lm_head
-from hetu_tpu_torch.ops.kernels import paged_decode as _paged_decode
+from hetu_tpu_torch.ops.kernels import _build
 
 __all__ = ["DecodeGraph"]
-
-_COUNTERS = (_paged_decode, _lm_head)
 
 
 class DecodeGraph:
@@ -54,7 +52,7 @@ class DecodeGraph:
                       d[2 * n:3 * n], d[3 * n:4 * n])
         self._graph = None
         self._out = None
-        self._launches = (0, 0)
+        self._launches = {}
 
     @property
     def captured(self) -> bool:
@@ -72,8 +70,7 @@ class DecodeGraph:
         if self._graph is None:
             return self._capture().tolist()
         self._graph.replay()
-        for mod, count in zip(_COUNTERS, self._launches):
-            mod.add_launches(count)
+        _build.add_launches(self._launches)
         return self._out.tolist()
 
     def _capture(self) -> torch.Tensor:
@@ -85,13 +82,35 @@ class DecodeGraph:
         with torch.cuda.stream(side):
             first = self._step(*self._args)
         current.wait_stream(side)
-        before = [mod.launch_count() for mod in _COUNTERS]
+        before = _build.launch_counts()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             self._out = self._step(*self._args)
-        self._launches = tuple(mod.launch_count() - b
-                               for mod, b in zip(_COUNTERS, before))
-        for mod, count in zip(_COUNTERS, self._launches):
-            mod.add_launches(-count)     # the capture launched nothing
+        self._launches = {n: c - before.get(n, 0)
+                          for n, c in _build.launch_counts().items()
+                          if c != before.get(n, 0)}
+        # the capture launched nothing
+        _build.add_launches({n: -c for n, c in self._launches.items()})
         self._graph = graph
         return first
+
+
+def _replay_vs_eager(engine) -> tuple:
+    """The engine's next decode step through its captured graph and
+    through its eager impl, from the same pool: ``(tokens equal, pool
+    bytes equal, pool written)``, bitwise.  The pool is left as the eager
+    step wrote it.  For the tests and the chip smoke run."""
+    args = engine._decode_inputs(engine.batcher.active())[1]
+    pool = engine.pool
+    k0, v0 = pool.k.clone(), pool.v.clone()
+    replayed = engine._decode_graph(*args)
+    kg, vg = pool.k.clone(), pool.v.clone()
+    pool.k.copy_(k0)
+    pool.v.copy_(v0)
+    eager = engine._paged_decode_impl(*map(engine._tensor, args)).tolist()
+
+    def same(a, b):
+        return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+    return (replayed == eager, same(kg, pool.k) and same(vg, pool.v),
+            not same(kg, k0))

@@ -285,6 +285,32 @@ def test_device_random_bits_and_uniform_equal_the_cpus(cuda, shape):
                        prng.fold_in_tensor(keys[:5], data))
 
 
+@pytest.mark.parametrize("name,args", [
+    ("rand", ()), ("uniform_sample", (-1.0, 2.0)), ("normal_sample", ()),
+    ("truncated_normal_sample", ()), ("gumbel_sample", ()),
+    ("randint_sample", (0, 9))])
+def test_draws_with_no_key_and_no_device_run_on_the_card(cuda, name, args):
+    """``rand((n,))`` and its kin with neither key nor device draw
+    ``next_key()`` on the card: the same values as the CPU's draw from the
+    same global RNG state (bitwise but for the Gumbel field's and the
+    normals' ``log`` / ``erfinv``)."""
+    from hetu_tpu_torch.core import rng
+    from hetu_tpu_torch.ops import random as R
+    fn = getattr(R, name)
+    rng.set_random_seed(4)
+    got = fn((1000,), *args)
+    rng.set_random_seed(4)
+    ref = fn((1000,), *args, device="cpu")
+    assert got.device.type == "cuda" and got.dtype == ref.dtype
+    if name in ("rand", "uniform_sample", "randint_sample"):
+        assert torch.equal(got.cpu(), ref)
+    elif name == "gumbel_sample":
+        assert (got.cpu() - ref).abs().max() <= 2e-6
+    else:       # the tolerance tests/test_torch_random.py holds JAX's to
+        torch.testing.assert_close(got.cpu(), ref, rtol=1e-5, atol=1e-6)
+    assert rng.get_seed_status() == (4, 1)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", ["temperature", "top_k"])
 def test_lm_head_sample_tokens_matches_its_plain_route(cuda, dtype, mode):
@@ -293,45 +319,21 @@ def test_lm_head_sample_tokens_matches_its_plain_route(cuda, dtype, mode):
     tokens equal wherever the two best perturbed scores are separated by
     more than the kernel's 1e-4 value tolerance."""
     from hetu_tpu_torch.core import prng
-    from hetu_tpu_torch.ops import random as R
     g = torch.Generator().manual_seed(5)
     N, E, V, T = 8, 768, 50257, 0.8
     w = (torch.randn((V, E), generator=g) * 0.02).to(cuda, dtype)
     h = torch.randn((N, E), generator=g).to(cuda, dtype)
     keys = prng.fold_in_tensor(prng.key(1), torch.arange(N)).to(cuda)
+    lh.reset_launch_count()
     got = lh.lm_head_sample_tokens(h, w, mode=mode, top_k=5, temperature=T,
                                    keys=keys)
-    lh.reset_launch_count()
-    if mode == "temperature":
-        field = R._gumbel(keys, (V,))
-        vals, idx = lh.lm_head_sample_plain(h, w, k=2, gumbel=field,
-                                            temperature=T)
-        ref, sep = idx[:, 0], vals[:, 0] - vals[:, 1] > 1e-4
-    else:
-        vals, idx = lh.lm_head_sample_plain(h, w, k=5)
-        scores = R._gumbel(keys, (5,)) + vals / T
-        top = torch.sort(scores, descending=True).values
-        ref = torch.gather(idx, 1, R.greedy_sample(scores).long()[:, None])
-        ref, sep = ref[:, 0], top[:, 0] - top[:, 1] > 1e-4
-    assert lh.launch_count() == 0
+    assert lh.launch_count() == 1
+    ref, gap = lh._sample_tokens_plain(h, w, mode=mode, top_k=5,
+                                       temperature=T, keys=keys)
+    assert lh.launch_count() == 1
+    sep = gap > 1e-4
     assert sep.sum() >= N - 1
     assert torch.equal(got[sep], ref[sep])
-
-
-def _graph_vs_eager(eng):
-    """The engine's next decode step through its captured graph and
-    through the eager impl from the same pool: tokens and pool bytes."""
-    args = eng._decode_inputs(eng.batcher.active())[1]
-    k0, v0 = eng.pool.k.clone(), eng.pool.v.clone()
-    replayed = eng._decode_graph(*args)
-    kg, vg = eng.pool.k.clone(), eng.pool.v.clone()
-    eng.pool.k.copy_(k0)
-    eng.pool.v.copy_(v0)
-    eager = eng._paged_decode_impl(*map(eng._tensor, args)).tolist()
-    same = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
-               for a, b in ((kg, eng.pool.k), (vg, eng.pool.v)))
-    return replayed, eager, same, not torch.equal(kg.view(torch.uint8),
-                                                  k0.view(torch.uint8))
 
 
 @pytest.mark.parametrize("mode", ["greedy", "temperature", "top_k"])
@@ -340,6 +342,7 @@ def test_decode_graph_replay_equals_the_eager_step(cuda, mode):
     eager step's tokens and writes the same pool bytes; the launch
     counters show both kernels on every replayed step."""
     from hetu_tpu_torch import GPT, GPTConfig, ServingEngine
+    from hetu_tpu_torch.serve.graph import _replay_vs_eager
     model = GPT(GPTConfig(vocab_size=300, hidden_size=64, num_layers=2,
                           num_heads=2, max_seq_len=64), device=cuda,
                 generator=torch.Generator().manual_seed(0))
@@ -355,8 +358,8 @@ def test_decode_graph_replay_equals_the_eager_step(cuda, mode):
     steps = eng.stats()["decode_steps"]
     assert eng._decode_graph.captured and steps >= 2
     assert pd.launch_count() == 2 * steps and lh.launch_count() == steps
-    replayed, eager, same_pool, wrote = _graph_vs_eager(eng)
-    assert replayed == eager and same_pool and wrote
+    same_tokens, same_pool, wrote = _replay_vs_eager(eng)
+    assert same_tokens and same_pool and wrote
     eng.run_until_idle()
     assert eng.stats()["requests"]["completed"] == 2
 

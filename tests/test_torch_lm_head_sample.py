@@ -248,3 +248,22 @@ def test_sample_tokens_refusals():
     greedy = lh.lm_head_greedy(th, tw)
     assert torch.equal(lh.lm_head_sample_tokens(
         th, tw, mode="temperature", temperature=0.0), greedy)
+
+
+@pytest.mark.parametrize("mode", ["temperature", "top_k"])
+def test_plain_route_of_the_sample_tokens_equals_pallas(mode):
+    """``_sample_tokens_plain``, the reference the card checks hold the
+    kernel's tokens to, against ``lm_head_sample_pallas(...,
+    interpret=True)``: tokens equal, and every gap between a row's two
+    best perturbed scores is positive."""
+    N, E, V, T = 8, 32, 300, 0.8
+    h, w, _ = _inputs(N, E, V, seed=3)
+    keys, words = _row_keys(N, seed=4)
+    ref = np.asarray(lm_head_sample_pallas(
+        jnp.asarray(h), jnp.asarray(w), mode=mode, top_k=5, temperature=T,
+        keys=keys, interpret=True))
+    got, gap = lh._sample_tokens_plain(
+        torch.from_numpy(h), torch.from_numpy(np.ascontiguousarray(w.T)),
+        mode=mode, top_k=5, temperature=T, keys=words)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert tuple(gap.shape) == (N,) and bool((gap > 0).all())

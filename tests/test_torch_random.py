@@ -99,7 +99,7 @@ def test_fold_in_tensor_matches_host_fold_in_and_jax(seed):
 def test_uniform_is_bitwise_jax(low, high):
     jk, tk = _key(1)
     ref = JR.uniform_sample((50257,), low, high, key=jk)
-    got = R.uniform_sample((50257,), low, high, key=tk)
+    got = R.uniform_sample((50257,), low, high, key=tk, device="cpu")
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(_bits(got.numpy()), _bits(ref))
 
@@ -110,7 +110,7 @@ def test_uniform_is_bitwise_jax(low, high):
 def test_rand_is_bitwise_jax(dtype, jdtype):
     jk, tk = _key(2)
     ref = np.asarray(JR.rand((3, 1000), jdtype, key=jk)).astype(np.float32)
-    got = R.rand((3, 1000), dtype, key=tk)
+    got = R.rand((3, 1000), dtype, key=tk, device="cpu")
     assert got.dtype == dtype
     np.testing.assert_array_equal(got.float().numpy(), ref)
     assert 0.0 <= got.min() and got.max() < 1.0
@@ -125,7 +125,7 @@ def test_rand_is_bitwise_jax(dtype, jdtype):
 def test_randint_is_bitwise_jax(low, high, dtype, jdtype):
     jk, tk = _key(3)
     ref = np.asarray(JR.randint_sample((5000,), low, high, jdtype, key=jk))
-    got = R.randint_sample((5000,), low, high, dtype, key=tk)
+    got = R.randint_sample((5000,), low, high, dtype, key=tk, device="cpu")
     assert got.dtype == dtype
     np.testing.assert_array_equal(got.numpy(), ref)
 
@@ -134,7 +134,7 @@ def test_randint_is_bitwise_jax(low, high, dtype, jdtype):
 def test_gumbel_within_tolerance(shape):
     jk, tk = _key(4)
     ref = np.asarray(JR.gumbel_sample(shape, key=jk))
-    got = R.gumbel_sample(shape, key=tk).numpy()
+    got = R.gumbel_sample(shape, key=tk, device="cpu").numpy()
     np.testing.assert_allclose(got, ref, rtol=0, atol=GUMBEL_ATOL)
 
 
@@ -143,7 +143,8 @@ def test_gumbel_within_tolerance(shape):
 def test_normals_within_tolerance(name, mean, stddev):
     jk, tk = _key(5)
     ref = np.asarray(getattr(JR, name)((50257,), mean, stddev, key=jk))
-    got = getattr(R, name)((50257,), mean, stddev, key=tk).numpy()
+    got = getattr(R, name)((50257,), mean, stddev, key=tk,
+                           device="cpu").numpy()
     np.testing.assert_allclose(got, ref, rtol=NORMAL_RTOL, atol=NORMAL_ATOL)
     if name == "truncated_normal_sample":
         assert np.abs(got - mean).max() < 2 * stddev
@@ -234,22 +235,46 @@ def test_key_none_follows_the_global_seed_as_the_reference():
     trng.set_random_seed(11)
     refs = [np.asarray(JR.rand((16,))), np.asarray(JR.randint_sample(
         (16,), 0, 9)), np.asarray(JR.uniform_sample((16,), -2.0, 3.0))]
-    gots = [R.rand((16,)), R.randint_sample((16,), 0, 9),
-            R.uniform_sample((16,), -2.0, 3.0)]
+    gots = [R.rand((16,), device="cpu"),
+            R.randint_sample((16,), 0, 9, device="cpu"),
+            R.uniform_sample((16,), -2.0, 3.0, device="cpu")]
     for ref, got in zip(refs, gots):
         np.testing.assert_array_equal(got.numpy(), ref)
     R.temperature_sample(torch.zeros(3, 4), 0.0)
     JR.temperature_sample(jnp.zeros((3, 4)), 0.0)
     assert trng.get_seed_status() == jrng.get_seed_status() == (11, 3)
-    np.testing.assert_allclose(R.gumbel_sample((64,)).numpy(),
+    np.testing.assert_allclose(R.gumbel_sample((64,), device="cpu").numpy(),
                                np.asarray(JR.gumbel_sample((64,))),
                                rtol=0, atol=GUMBEL_ATOL)
 
 
 def test_unsupported_types_raise():
     with pytest.raises(TypeError):
-        R.rand((2,), torch.float64, key=prng.key(0))
+        R.rand((2,), torch.float64, key=prng.key(0), device="cpu")
     with pytest.raises(TypeError):
-        R.randint_sample((2,), 0, 5, torch.int64, key=prng.key(0))
+        R.randint_sample((2,), 0, 5, torch.int64, key=prng.key(0),
+                         device="cpu")
     with pytest.raises(ValueError):
         prng.random_bits(torch.zeros(3, dtype=torch.int64), (2,))
+
+
+@pytest.mark.parametrize("name,args", [
+    ("rand", ()), ("uniform_sample", (-1.0, 2.0)), ("normal_sample", ()),
+    ("truncated_normal_sample", ()), ("gumbel_sample", ()),
+    ("randint_sample", (0, 9))])
+def test_draws_run_on_the_card_unless_the_cpu_is_asked_for(name, args):
+    """``device=None`` is the card, as for every entry point of the port:
+    without a card the draw raises, before it takes a key from the global
+    RNG; ``device="cpu"`` moves a given key there (a tensor or an array
+    of its words) and draws what the key alone decides."""
+    fn = getattr(R, name)
+    trng.set_random_seed(3)
+    if torch.cuda.is_available():
+        assert fn((4,), *args).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn((4,), *args)
+        assert trng.get_seed_status() == (3, 0)
+    a = fn((4,), *args, key=prng.key(1), device="cpu")
+    b = fn((4,), *args, key=prng.key(1).numpy(), device=torch.device("cpu"))
+    assert a.device.type == "cpu" and torch.equal(a, b)

@@ -314,3 +314,34 @@ def test_fifo_batcher_schedules_as_the_single_tenant_reference(seed):
         rid += op == 0
     assert logs[0] == logs[1]
     assert any(e[0] == "tick" and e[2] for e in logs[1])
+
+
+def test_every_kernel_counter_lives_in_one_registry():
+    """The decode graph adds what its capture counted to every counter at
+    once (``_build.add_launches``): each wrapper module's count reads that
+    registry, and a module's reset clears its own names only."""
+    from hetu_tpu_torch.ops.kernels import (_build, flash, fused_ln,
+                                            lm_head, lm_head_ce,
+                                            paged_decode)
+    reads = {"paged_decode_attention": paged_decode.launch_count,
+             "lm_head_sample": lm_head.launch_count,
+             "flash_fwd": flash.fwd_launch_count,
+             "flash_bwd": flash.bwd_launch_count,
+             "flash_block_fwd": flash.block_fwd_launch_count,
+             "flash_block_bwd": flash.block_bwd_launch_count,
+             "lm_head_ce_fwd": lm_head_ce.fwd_launch_count,
+             "lm_head_ce_bwd": lm_head_ce.bwd_launch_count,
+             "fused_ln_fwd": fused_ln.fwd_launch_count,
+             "fused_ln_bwd": fused_ln.bwd_launch_count}
+    for m in (paged_decode, lm_head, flash, lm_head_ce, fused_ln):
+        m.reset_launch_count()
+    deltas = {n: i + 1 for i, n in enumerate(reads)}
+    _build.add_launches(deltas)
+    _build.count_launch("lm_head_sample")
+    assert {n: f() for n, f in reads.items()} == {
+        **deltas, "lm_head_sample": deltas["lm_head_sample"] + 1}
+    _build.add_launches({n: -c for n, c in deltas.items()})
+    flash.reset_launch_count()
+    assert lm_head.launch_count() == 1
+    lm_head.reset_launch_count()
+    assert all(f() == 0 for f in reads.values())
