@@ -386,10 +386,34 @@ where it happened; any failure exits non-zero:
    what NCCL says to two ranks on one card; (d) ``dp_search`` for
    bench.py config 4 over four of this card, ``plan_to_strategy`` on a
    local mesh, 2 steps;
-21. a ``kernels`` JSON line (the one-kv-block flash pair once for each
+21. pipelines: GPT-2 small at full width and depth composed as
+   ``__graft_entry__.py``'s config A composes its LM (the embedding,
+   ``Pipelined`` blocks with flash, the final LN, the streamed head tied
+   to the embedding; fp32, TF32 off, 8 x 1024, AdamW 3e-4): (a) GPipe on
+   a local pp=4 mesh, M=8, under remat "none" and "full": the step-0
+   loss (1e-5) and every gradient (1e-3 of its max) against the model
+   with ``mesh=None``, 3 ``Trainer`` steps within ``ST_TOL`` of its
+   losses, 96 flash forwards ("full": 192) and 96 backwards, 4 CE
+   forwards (every pp rank runs the head on the published output) and 1
+   backward (the last stage's loss alone seeds the backward) a step, a
+   control with two stages' blocks swapped that must leave the gradient
+   limit; (b) config A's dp=2 tp=2 pp=2 with ZeRO-1, 8 ranks: each
+   rank's parameter and slot bytes, 3 steps within ``ST_TOL``, the
+   collectives a step; (c) ``pipedream_grads`` over the 12 blocks, S=4,
+   M=8, V=3 through ``interleave_stages``, the head per microbatch: the
+   blocks' gradients against the unsharded ones, the schedule's stats
+   for V=1 and 3; (d) ``pipedream_train_step`` at lr 0 bitwise, at S=1
+   against a sequential per-microbatch SGD loop, 2 HetPipe steps at
+   pp=4 x dp=2; (e) ``HeteroPipeline`` at ``plan_hetero_dp([2, 1, 1],
+   4)``, M=4: loss and gradients, one step; (f) GPipe pp=2 across two
+   processes of this script over gloo (``--pipeline-worker``), losses and
+   step-0 gradients bitwise the local pp=2 arm's, the hops' calls, bytes
+   and ms; then the flash pair at a microbatch (B=1, H=12 and 6) and the
+   CE pair at N=1023 and on (b)'s vocabulary shard timed;
+22. a ``kernels`` JSON line (the one-kv-block flash pair once for each
    path that runs it: phase 8 at seq 512, phase 10's flash arm, phase
-   11's ViT; the flash and CE pairs at phase 20's rank shapes), then the
-   last line
+   11's ViT; the flash and CE pairs at phase 20's rank shapes and phase
+   21's microbatch and shard shapes), then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Phase 3 also holds the fused residual + dropout + LayerNorm kernels
@@ -401,7 +425,7 @@ the ring's block backward fed the block's own lse, a control that must
 fail its check, and the plain versions of the CE forward fed h and W,
 and of the flash forward fed q, k and v, rounded to TF32: controls that
 must fail the fp32 limits (a kernel that ran one-pass TF32 products
-would).  Phase 21 prints each flash kernel's time beside the prediction
+would).  Phase 22 prints each flash kernel's time beside the prediction
 made before its tensor-core redesign first ran, and likewise paged
 decode's, the fused-LN backward's and LM-head sampling's beside their
 predictions and their times before their redesign, and paged decode's
@@ -8729,6 +8753,604 @@ def strategy_phase(fl, ce, gpt_mod, card, train_losses, cluster,
     return out, time.monotonic() - t_start
 
 
+# --------------------------------------------------------------- phase 21
+# pipelines: GPT-2 small composed as __graft_entry__.py's config A composes
+# its LM (an embedding, ``Pipelined`` blocks, a final LN, the head tied to
+# the embedding) through GPipe on a local mesh, config A's dp x tp x pp
+# composition, synchronous and interleaved 1F1B, asynchronous PipeDream
+# with HetPipe's dp mean, heterogeneous dp degrees, and GPipe across two
+# processes sharing the card over gloo.
+
+PP_STEPS = 3
+PP_BATCH = 8
+PP_TOL = 1e-5          # step-0 loss, relative
+PP_GRAD_TOL = 1e-3     # step-0 gradients, of each one's max (other sums)
+PP_PROC_TOL = 1e-6     # two processes vs the local pp = 2 arm, relative
+PP_LR = 3e-4
+
+
+def pp_model(cfg, dev, mesh, n_microbatches, remat="none"):
+    """Config A's LM at ``cfg``'s widths: the embedding, ``Pipelined``
+    blocks with flash, the final LN and the head tied to the embedding,
+    streamed through the CE kernels (a rank holding a vocabulary shard
+    streams its shard).  Weights from a seeded generator, the same for
+    every mesh."""
+    from hetu_tpu_torch import flash_attn_fn
+    from hetu_tpu_torch.init import normal
+    from hetu_tpu_torch.layers import Embedding, LayerNorm, TransformerBlock
+    from hetu_tpu_torch.ops.losses import (lm_head_cross_entropy,
+                                           vocab_parallel_cross_entropy)
+    from hetu_tpu_torch.parallel import Pipelined
+
+    class PipeLM(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            g = torch.Generator().manual_seed(0)
+            self.embed = Embedding(cfg.vocab_size, cfg.hidden_size,
+                                   initializer=normal(stddev=0.02),
+                                   generator=g, device=dev)
+            self.blocks = Pipelined(
+                [TransformerBlock(cfg.hidden_size, cfg.num_heads, 4,
+                                  causal=True,
+                                  attn_fn=flash_attn_fn(native_layout=True),
+                                  generator=g, device=dev)
+                 for _ in range(cfg.num_layers)],
+                n_microbatches=n_microbatches, mesh=mesh, remat=remat)
+            self.ln = LayerNorm(cfg.hidden_size, device=dev)
+
+        def head_loss(self, h, ids):
+            b, s = ids.shape
+            x = self.ln(h)[:, :-1].reshape(b * (s - 1), -1)
+            labels = ids[:, 1:].reshape(-1)
+            chunk = cfg.streamed_head_chunk
+            if self.embed._tp is not None:
+                return vocab_parallel_cross_entropy(
+                    x, self.embed.weight, labels, self.embed.vocab_start,
+                    self.embed._tp, chunk=chunk).mean()
+            return lm_head_cross_entropy(x, self.embed.weight, labels,
+                                         chunk=chunk).mean()
+
+        def loss(self, ids, key=None, training=False):
+            return self.head_loss(self.blocks(self.embed(ids), key=key,
+                                              training=training), ids)
+
+    return PipeLM()
+
+
+def pp_loss(m, batch, key):
+    return m.loss(batch), {}
+
+
+def pp_trainer(cfg, dev, mesh, M, remat="none", zero=0):
+    from hetu_tpu_torch import AdamWOptimizer, Trainer
+    from hetu_tpu_torch.parallel.spec import MEGATRON_RULES
+    from hetu_tpu_torch.parallel.strategies import ShardingStrategy
+    model = pp_model(cfg, dev, mesh, M, remat)
+    strat = None if mesh is None else ShardingStrategy(
+        mesh=mesh, rules=MEGATRON_RULES, zero_stage=zero)
+    return Trainer(model, AdamWOptimizer(PP_LR, weight_decay=0.01), pp_loss,
+                   strategy=strat)
+
+
+def pp_full_grads(sh):
+    """Every parameter's gradient from the ranks' reduced ones (the pp
+    sum of the replicated parameters, the dp mean): a holding rank's, its
+    tp pieces joined."""
+    from hetu_tpu_torch.parallel.spec import gather_param
+    grads = sh.reduce_grads()
+    out = {}
+    for name, pl in sh.place.items():
+        idx = [i for i, c in enumerate(sh.coords)
+               if c["dp"] == 0 and name in grads[i]]
+        out[name] = gather_param([grads[i][name] for i in idx], pl.shape,
+                                 pl.tp_spec, [sh.coords[i] for i in idx],
+                                 sh.mesh.shape, pl.blocks)
+    return out
+
+
+def pp_worst(grads, ref, names=None):
+    """The largest gradient error, of each gradient's own max."""
+    return max((((grads[k] - g).abs().max()
+                 / g.abs().max().clamp_min(1e-30)).item(), k)
+               for k, g in ref.items() if names is None or k in names)
+
+
+def pp_reference(cfg, ids, dev):
+    """The unsharded model (``mesh=None``): its step-0 loss and
+    gradients, then ``PP_STEPS`` AdamW steps' losses and median step."""
+    tr = pp_trainer(cfg, dev, None, 1)
+    loss = tr.model.loss(ids)
+    loss.backward()
+    ref = {"loss": float(loss.detach()), "grads": {n: p.grad.clone() for n, p in
+                                          tr.model.named_parameters()}}
+    for p in tr.model.parameters():
+        p.grad = None
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    losses, times = [], []
+    for _ in range(PP_STEPS):
+        sync()
+        t0 = time.monotonic()
+        losses.append(float(tr.step(ids)["loss"]))
+        sync()
+        times.append(time.monotonic() - t0)
+    ref.update(losses=losses, step_ms=statistics.median(times) * 1e3)
+    del tr
+    gc.collect()
+    return ref
+
+
+def pp_steps(trainer, ids, fl, ce, dev):
+    """``PP_STEPS`` steps: losses, step times, launches a step, the
+    collectives a step, the peak."""
+    from hetu_tpu_torch.parallel import collectives as col
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    col.reset_counts()
+    losses, times, per_step = [], [], []
+    for _ in range(PP_STEPS):
+        before = st_counts(fl, ce)
+        sync()
+        t0 = time.monotonic()
+        losses.append(float(trainer.step(ids)["loss"]))
+        sync()
+        times.append(time.monotonic() - t0)
+        per_step.append(tuple(a - b for a, b in
+                              zip(st_counts(fl, ce), before)))
+    kinds = {k: (v["calls"] // PP_STEPS, v["bytes"] // PP_STEPS)
+             for k, v in col.counts().items()}
+    med = statistics.median(times)
+    return {"losses": losses, "step_ms": med * 1e3,
+            "times": [t * 1e3 for t in times], "per_step": per_step,
+            "kinds": kinds, "tokens_s": ids.numel() / med,
+            "peak": (torch.cuda.max_memory_allocated() if dev == "cuda"
+                     else 0)}
+
+
+def pp_gpipe(cfg, ids, ref, fl, ce, card, dev, remat, control=False):
+    """(a) GPipe on a local pp = 4 mesh, M = 8: the step-0 loss and every
+    gradient against the unsharded model, ``PP_STEPS`` steps against its
+    losses, each step's launches; ``control``: two stages' blocks swapped
+    (weights exchanged between rank 0's first block and rank 1's last)
+    must leave the gradient limit."""
+    from hetu_tpu_torch.parallel import MeshSpec, make_mesh
+    mesh = make_mesh(MeshSpec(pp=4), device=dev)
+    tr = pp_trainer(cfg, dev, mesh, 8, remat)
+    sh = tr._sharded
+    out = sh.forward_backward(pp_loss, ids, None)
+    loss = float(sh.mean_loss([o[0] for o in out]))
+    full = pp_full_grads(sh)
+    lrel = abs(loss - ref["loss"]) / abs(ref["loss"])
+    worst = pp_worst(full, ref["grads"])
+    del full, out
+    row = {"step0_rel": lrel, "grad_rel": worst[0]}
+    print(f"(a) GPipe pp=4 M=8 remat={remat!r} step 0: loss {loss:.6f} vs "
+          f"unsharded {ref['loss']:.6f}, relative {lrel:.3e} (tol "
+          f"{PP_TOL:g}); worst gradient {worst[1]}: {worst[0]:.3e} of its "
+          f"max (tol {PP_GRAD_TOL:g}); {card}")
+    assert lrel <= PP_TOL and worst[0] <= PP_GRAD_TOL, (lrel, worst)
+    if control:
+        L = cfg.num_layers // 4
+        a, b = sh.models[0].blocks.stacked[0], sh.models[1].blocks.stacked[
+            2 * L - 1]
+        with torch.no_grad():
+            for pa, pb in zip(a.parameters(), b.parameters()):
+                w = pa.detach().clone()
+                pa.copy_(pb)
+                pb.copy_(w)
+        sh.forward_backward(pp_loss, ids, None)
+        cworst = pp_worst(pp_full_grads(sh), ref["grads"])
+        with torch.no_grad():
+            for pa, pb in zip(a.parameters(), b.parameters()):
+                w = pa.detach().clone()
+                pa.copy_(pb)
+                pb.copy_(w)
+        print(f"(a) control: stage 0's first block and stage 1's last "
+              f"swapped: worst gradient {cworst[1]} {cworst[0]:.3e} of its "
+              f"max (must exceed tol {PP_GRAD_TOL:g}); {card}")
+        assert cworst[0] > PP_GRAD_TOL, "the check cannot tell swapped stages"
+        row["control"] = cworst[0]
+    for m in sh.models:
+        for p in m.parameters():
+            p.grad = None
+    gc.collect()
+    row.update(pp_steps(tr, ids, fl, ce, dev))
+    gap = max(abs(x - y) / abs(y) for x, y in zip(row["losses"],
+                                                    ref["losses"]))
+    row["gap"] = gap
+    print(f"(a) remat={remat!r}: losses {[round(x, 6) for x in row['losses']]}"
+          f" vs unsharded {[round(x, 6) for x in ref['losses']]}, largest "
+          f"relative gap {gap:.3e} (tol {ST_TOL:g}); launches a step (flash "
+          f"fwd, bwd, CE fwd, bwd) {row['per_step']}; collectives a step "
+          f"(calls, bytes) {row['kinds']}; median step {row['step_ms']:.3f} ms"
+          f" ({[round(t, 1) for t in row['times']]}; unsharded "
+          f"{ref['step_ms']:.3f} ms), {row['tokens_s']:.1f} tokens/s, peak "
+          f"{row['peak']} bytes ({row['peak'] / 2**30:.3f} GiB); the four "
+          f"ranks run in turn on the one card, not a multi-card step; "
+          f"{card}")
+    assert gap <= ST_TOL, gap
+    del tr, sh
+    gc.collect()
+    return row
+
+
+def pp_config_a(cfg, ids, ref, fl, ce, card, dev):
+    """(b) config A's composition: dp = 2, tp = 2, pp = 2, Megatron rules,
+    ZeRO-1, M = 4 microbatches of a rank's 4 rows, ``PP_STEPS`` steps
+    against the unsharded ones; each rank's parameter and slot bytes."""
+    from hetu_tpu_torch.parallel import MeshSpec, make_mesh
+    mesh = make_mesh(MeshSpec(dp=2, tp=2, pp=2), device=dev)
+    tr = pp_trainer(cfg, dev, mesh, 4, "none", zero=1)
+    sh = tr._sharded
+    pbytes = [sum(p.numel() * p.element_size() for p in m.parameters())
+              for m in sh.models]
+    sbytes = [sum(t.numel() * t.element_size() for k, v in st.items()
+                  if k != "step" for t in v.values())
+              for st in sh.opt_states]
+    zeroed = sorted(n for n, pl in sh.place.items() if pl.zdim is not None)
+    print(f"(b) dp=2 tp=2 pp=2 ZeRO-1: {len(sh.models)} ranks; parameter "
+          f"bytes by rank {pbytes}; AdamW slot bytes by rank {sbytes}; "
+          f"ZeRO-sharded slots {zeroed} (a stacked block's dimension 0 is "
+          f"its layers: none of the blocks'); {card}")
+    assert not any(n in sh.stacked for n in zeroed)
+    row = pp_steps(tr, ids, fl, ce, dev)
+    gap = max(abs(x - y) / abs(y) for x, y in zip(row["losses"],
+                                                    ref["losses"]))
+    row.update(gap=gap, param_bytes=pbytes, slot_bytes=sbytes)
+    print(f"(b) losses {[round(x, 6) for x in row['losses']]} vs unsharded "
+          f"{[round(x, 6) for x in ref['losses']]}, largest relative gap "
+          f"{gap:.3e} (tol {ST_TOL:g}); launches a step (flash fwd, bwd, CE "
+          f"fwd, bwd) {row['per_step']}; collectives a step (calls, bytes) "
+          f"{row['kinds']}; median step {row['step_ms']:.3f} ms, "
+          f"{row['tokens_s']:.1f} tokens/s, peak {row['peak']} bytes; the "
+          f"eight ranks run in turn on the one card; {card}")
+    assert gap <= ST_TOL, gap
+    del tr, sh
+    gc.collect()
+    return row
+
+
+def pp_blocks(cfg, dev):
+    """The unsharded model's blocks, embedding output and head loss: the
+    1F1B and heterogeneous arms' stages and ``loss_fn``."""
+    model = pp_model(cfg, dev, None, 1)
+    for p in model.parameters():
+        p.requires_grad_(False)
+    for p in model.blocks.parameters():
+        p.requires_grad_(True)
+    return model, list(model.blocks.stacked)
+
+
+def pp_pipedream(cfg, ids, ref, fl, ce, card, dev):
+    """(c) synchronous 1F1B over the 12 blocks, S = 4, M = 8, V = 3 through
+    ``interleave_stages``: the blocks' gradients against the unsharded
+    model's; (d) asynchronous PipeDream: lr 0 bitwise, S = 1 against a
+    sequential per-microbatch loop, two HetPipe steps at pp = 4 x dp =
+    2."""
+    from hetu_tpu_torch.optim import SGDOptimizer
+    from hetu_tpu_torch.parallel import (MeshSpec, interleave_stages,
+                                         make_mesh, pipedream_grads,
+                                         pipedream_schedule_stats,
+                                         pipedream_train_step,
+                                         uninterleave_stages)
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    model, blocks = pp_blocks(cfg, dev)
+    with torch.no_grad():
+        x = model.embed(ids)
+    stage1 = lambda blk, h, ex: blk(h)  # noqa: E731
+
+    def stage_n(stage, h, ex):
+        for blk in stage:
+            h = blk(h)
+        return h
+
+    S, V, M = 4, 3, 8
+    out = {"stats": {v: pipedream_schedule_stats(S, v, M) for v in (1, V)}}
+    for v, st in out["stats"].items():
+        print(f"(c) pipedream_schedule_stats(S={S}, V={v}, M={M}): {st}")
+    before = st_counts(fl, ce)
+    sync()
+    t0 = time.monotonic()
+    loss, g = pipedream_grads(stage1, model.head_loss,
+                              interleave_stages(blocks, S, V), x, ids,
+                              mesh=make_mesh(MeshSpec(pp=S), device=dev),
+                              n_microbatches=M, virtual_stages=V)
+    sync()
+    sync_ms = (time.monotonic() - t0) * 1e3
+    g = uninterleave_stages(g, S, V)
+    launches = tuple(a - b for a, b in zip(st_counts(fl, ce), before))
+    got = {f"blocks.stacked.{li}.{n}": t for li, gd in enumerate(g)
+           for n, t in gd.items()}
+    worst = pp_worst(got, ref["grads"], names=set(got))
+    lrel = abs(float(loss) - ref["loss"]) / abs(ref["loss"])
+    print(f"(c) synchronous 1F1B S={S} V={V} M={M}: loss {float(loss):.6f} "
+          f"(relative {lrel:.3e} to the unsharded step 0, tol {PP_TOL:g}); "
+          f"worst block gradient {worst[1]}: {worst[0]:.3e} of its max (tol "
+          f"{PP_GRAD_TOL:g}); launches (flash fwd, bwd, CE fwd, bwd) "
+          f"{launches}; {sync_ms:.1f} ms, the stages in turn on the one "
+          f"card; {card}")
+    assert lrel <= PP_TOL and worst[0] <= PP_GRAD_TOL, (lrel, worst)
+    out["sync"] = {"loss": float(loss), "grad_rel": worst[0],
+                   "launches": launches, "ms": sync_ms}
+    del g, got
+    # (d) asynchronous: lr 0 keeps every weight bitwise
+    stages = [torch.nn.ModuleList(blocks[s * 3:(s + 1) * 3]) for s in range(S)]
+    snap = [p.detach().clone() for p in model.blocks.parameters()]
+    opt = SGDOptimizer(0.0)
+    loss0, _, _ = pipedream_train_step(
+        stage_n, model.head_loss, opt, stages,
+        [opt.init(st.named_parameters()) for st in stages], x, ids,
+        mesh=make_mesh(MeshSpec(pp=S), device=dev), n_microbatches=M)
+    same = all(torch.equal(a, p) for a, p in zip(snap,
+                                                  model.blocks.parameters()))
+    l0rel = abs(float(loss0) - float(loss)) / abs(float(loss))
+    print(f"(d) asynchronous S={S} M={M} at lr 0: every weight bitwise "
+          f"unchanged: {same}; loss {float(loss0):.6f}, relative "
+          f"{l0rel:.3e} to the synchronous one (tol {PP_TOL:g}); {card}")
+    assert same and l0rel <= PP_TOL, (same, l0rel)
+    # S = 1 against a sequential per-microbatch SGD loop
+    lr = 1e-2
+    opt = SGDOptimizer(lr)
+    whole = [torch.nn.ModuleList(blocks)]
+    seq = copy.deepcopy(whole[0])
+    pipedream_train_step(stage_n, model.head_loss, opt, whole,
+                         [opt.init(whole[0].named_parameters())], x, ids,
+                         mesh=make_mesh(MeshSpec(pp=1), device=dev),
+                         n_microbatches=M)
+    mb = ids.shape[0] // M
+    for m in range(M):
+        lm = model.head_loss(stage_n(seq, x[m * mb:(m + 1) * mb], None),
+                             ids[m * mb:(m + 1) * mb])
+        gs = torch.autograd.grad(lm, list(seq.parameters()))
+        with torch.no_grad():
+            for p, gp in zip(seq.parameters(), gs):
+                p.sub_(lr * gp)
+    pairs = list(zip(whole[0].parameters(), seq.parameters()))
+    bitwise = all(torch.equal(a, b) for a, b in pairs)
+    s1 = max(((a - b).abs().max() / b.abs().max()).item() for a, b in pairs)
+    print(f"(d) asynchronous S=1 M={M} SGD {lr:g} against the sequential "
+          f"per-microbatch loop: bitwise {bitwise}, worst weight "
+          f"{s1:.3e} of its max (tol {PP_PROC_TOL:g}); {card}")
+    assert s1 <= PP_PROC_TOL, s1
+    with torch.no_grad():
+        for a, p in zip(snap, model.blocks.parameters()):
+            p.copy_(a)
+    del seq, whole
+    # two HetPipe steps: pp = 4 x dp = 2, each gradient the dp mean
+    opt = SGDOptimizer(0.1)
+    states = [opt.init(st.named_parameters()) for st in stages]
+    mesh = make_mesh(MeshSpec(pp=S, dp=2), device=dev)
+    het, het_ms = [], []
+    for _ in range(2):
+        sync()
+        t0 = time.monotonic()
+        lh, _, states = pipedream_train_step(
+            stage_n, model.head_loss, opt, stages, states, x, ids,
+            mesh=mesh, n_microbatches=4, dp_axis="dp")
+        sync()
+        het_ms.append((time.monotonic() - t0) * 1e3)
+        het.append(float(lh))
+    print(f"(d) HetPipe pp={S} x dp=2 M=4, SGD 0.1: losses "
+          f"{[round(v, 6) for v in het]}, step {[round(v, 1) for v in het_ms]}"
+          f" ms, optimizer steps {[st['step'] for st in states]}; {card}")
+    assert all(math.isfinite(v) for v in het) and all(
+        st["step"] == 8 for st in states)
+    out["async"] = {"lr0_same": same, "s1": s1, "bitwise_s1": bitwise,
+                    "hetpipe": het, "hetpipe_ms": het_ms}
+    del model, blocks, stages, x
+    gc.collect()
+    return out
+
+
+def pp_hetero(cfg, ids, ref, card, dev):
+    """(e) ``HeteroPipeline`` over 3 stages of 4 blocks at
+    ``plan_hetero_dp([2, 1, 1], 4)``, M = 4 microbatches of 2 x 1024: its
+    loss and gradients against the unsharded model's, then one AdamW
+    step."""
+    from hetu_tpu_torch import AdamWOptimizer
+    from hetu_tpu_torch.parallel import (HeteroPipeline, HeteroStage,
+                                         plan_hetero_dp)
+    model, blocks = pp_blocks(cfg, dev)
+    with torch.no_grad():
+        x = model.embed(ids)
+    plan = plan_hetero_dp([2, 1, 1], 4)
+    n = cfg.num_layers // 3
+
+    def stage_fn(stage, h, ex):
+        for blk in stage:
+            h = blk(h)
+        return h
+
+    stages = [HeteroStage(stage_fn, torch.nn.ModuleList(
+        blocks[s * n:(s + 1) * n]), [dev] * d) for s, d in enumerate(plan)]
+    pipe = HeteroPipeline(stages, lambda out, y: model.head_loss(out, y),
+                          AdamWOptimizer(PP_LR, weight_decay=0.01))
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    sync()
+    t0 = time.monotonic()
+    loss, grads = pipe.grads(x, ids, n_microbatches=4)
+    sync()
+    ms = (time.monotonic() - t0) * 1e3
+    got = {f"blocks.stacked.{s * n + int(k.split('.', 1)[0])}."
+           f"{k.split('.', 1)[1]}": g for s, gd in enumerate(grads)
+           for k, g in gd.items()}
+    worst = pp_worst(got, ref["grads"], names=set(got))
+    lrel = abs(loss - ref["loss"]) / abs(ref["loss"])
+    step_loss = pipe.step(x, ids, n_microbatches=4)
+    print(f"(e) HeteroPipeline dp {plan} over 3 stages of {n} blocks, M=4: "
+          f"loss {loss:.6f} (a float; relative {lrel:.3e}, tol {PP_TOL:g}), "
+          f"worst block gradient {worst[1]}: {worst[0]:.3e} of its max (tol "
+          f"{PP_GRAD_TOL:g}), grads {ms:.1f} ms; one AdamW step: loss "
+          f"{step_loss:.6f}, optimizer steps "
+          f"{[s['step'] for s in pipe.opt_states]}; {card}")
+    assert isinstance(loss, float) and lrel <= PP_TOL, lrel
+    assert worst[0] <= PP_GRAD_TOL, worst
+    assert all(s["step"] == 1 for s in pipe.opt_states)
+    del model, blocks, stages, pipe, x
+    gc.collect()
+    return {"plan": plan, "loss": loss, "grad_rel": worst[0], "ms": ms}
+
+
+def pp_digest(sh):
+    """Each held parameter's reduced step-0 gradient as a digest of its
+    bytes (the processes and the local arm compare them bitwise)."""
+    import hashlib
+    grads = sh.reduce_grads()
+    out = {}
+    for i, g in enumerate(grads):
+        for name, t in sorted(g.items()):
+            key = f"{sh.coords[i]['pp']}:{name}"
+            out[key] = hashlib.sha1(
+                t.detach().float().cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+def pp_worker(rank, nproc, coord, dev, cfg_kw):
+    """(f) one process of two: joins a gloo world, its tensors on ``dev``
+    (the shared card), GPipe pp = 2, M = 4 over the process mesh; prints
+    one ``PIPELINE`` JSON line (losses, the step-0 gradients' digests,
+    the hops' count, bytes and ms a step)."""
+    import datetime
+
+    import torch.distributed as dist
+    from hetu_tpu_torch.models.gpt import GPTConfig
+    from hetu_tpu_torch.parallel import MeshSpec, collectives as col
+    from hetu_tpu_torch.parallel import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://{coord}",
+                            world_size=nproc, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    cfg = GPTConfig(**cfg_kw)
+    mesh = make_mesh(MeshSpec(pp=nproc), device=dev, processes=True)
+    tr = pp_trainer(cfg, dev, mesh, 4)
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (PP_BATCH, cfg.max_seq_len))).to(dev)
+    tr._sharded.forward_backward(pp_loss, ids, None)
+    digest = pp_digest(tr._sharded)
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    losses, times = [], []
+    col.reset_counts()
+    with col.timed():
+        for _ in range(PP_STEPS):
+            sync()
+            t0 = time.monotonic()
+            losses.append(float(tr.step(ids)["loss"]))
+            sync()
+            times.append(time.monotonic() - t0)
+    kinds = {k: {"calls": v["calls"] // PP_STEPS,
+                 "bytes": v["bytes"] // PP_STEPS,
+                 "ms": v["s"] * 1e3 / PP_STEPS,
+                 "composed": v["composed"] // PP_STEPS}
+             for k, v in col.counts().items()}
+    print("PIPELINE " + json.dumps({
+        "rank": rank, "losses": losses, "digest": digest,
+        "step_ms": [t * 1e3 for t in times], "kinds": kinds}), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def pp_processes(cfg, ids, card, dev):
+    """(f) GPipe pp = 2 across two processes of this script on the card
+    over gloo against the same arm on a local pp = 2 mesh: losses and
+    step-0 gradients bitwise."""
+    from hetu_tpu_torch.parallel import MeshSpec, make_mesh
+    t0 = time.monotonic()
+    tr = pp_trainer(cfg, dev, make_mesh(MeshSpec(pp=2), device=dev), 4)
+    tr._sharded.forward_backward(pp_loss, ids, None)
+    local = pp_digest(tr._sharded)
+    local_losses = [float(tr.step(ids)["loss"]) for _ in range(PP_STEPS)]
+    del tr
+    gc.collect()
+    cfg_kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+              if f.name not in ("dtype", "remat")}
+    outs, rcs = st_spawn(
+        lambda r, port: ["--pipeline-worker", str(r), "2",
+                         f"127.0.0.1:{port}", dev, json.dumps(cfg_kw)],
+        2, 600)
+    rows = sorted(st_lines(outs, "PIPELINE"), key=lambda r: r["rank"])
+    assert rcs == [0, 0] and len(rows) == 2, (rcs, [o[-3000:] for o in outs])
+    digest = {**rows[0]["digest"], **rows[1]["digest"]}
+    same_grads = digest == local
+    gap = max(abs(a - b) / abs(b) for a, b in zip(rows[0]["losses"],
+                                                    local_losses))
+    hop = rows[0]["kinds"].get("ppermute", {})
+    print(f"(f) GPipe pp=2 M=4 across two processes on the one card (gloo): "
+          f"losses {[round(v, 6) for v in rows[0]['losses']]} vs local pp=2 "
+          f"{[round(v, 6) for v in local_losses]}, relative gap {gap:.3e} "
+          f"(tol {PP_PROC_TOL:g}), bitwise {rows[0]['losses'] == local_losses}"
+          f"; step-0 gradients bitwise the local arm's "
+          f"({len(digest)} tensors): {same_grads}; rank 0's hops a step "
+          f"{hop.get('calls')} calls, {hop.get('bytes')} bytes, "
+          f"{hop.get('ms', 0):.1f} ms ({hop.get('composed')} composed from "
+          f"all_reduce: gloo has no CUDA send/recv); collectives a step "
+          f"{rows[0]['kinds']}; step ms "
+          f"{[round(t, 1) for t in rows[0]['step_ms']]}; "
+          f"{time.monotonic() - t0:.1f} s; {card}")
+    assert rows[0]["losses"] == rows[1]["losses"], "the processes disagree"
+    assert gap <= PP_PROC_TOL and same_grads, (gap, same_grads)
+    return {"losses": rows[0]["losses"], "local": local_losses, "gap": gap,
+            "hop": hop, "kinds": rows[0]["kinds"],
+            "step_ms": rows[0]["step_ms"]}
+
+
+def pipeline_phase(fl, ce, gpt_mod, card, dev="cuda", cfg=None):
+    """Phase 21: (a) GPipe on a local pp = 4 mesh under remat 'full' and
+    'none' with the control; (b) config A's dp x tp x pp composition;
+    (c) synchronous interleaved 1F1B; (d) asynchronous PipeDream and
+    HetPipe; (e) heterogeneous dp; (f) two processes over gloo.  Returns
+    the rows the summary needs and the launches of the phase's run."""
+    t_start = time.monotonic()
+    cfg = cfg or gpt_mod.gpt2_small(streamed_head_chunk=1024)
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (PP_BATCH, cfg.max_seq_len))).to(dev)
+    ref = pp_reference(cfg, ids, dev)
+    fl.reset_launch_count()
+    ce.reset_launch_count()
+    rows = {}
+    L = cfg.num_layers
+    for remat, want in (("none", (8 * L, 8 * L, 4, 1)),
+                        ("full", (16 * L, 8 * L, 4, 1))):
+        rows[remat] = pp_gpipe(cfg, ids, ref, fl, ce, card, dev, remat,
+                               control=remat == "none")
+        if dev == "cuda":
+            assert all(s == want for s in rows[remat]["per_step"]), \
+                (remat, rows[remat]["per_step"], want)
+    a_launches = st_counts(fl, ce)
+    rows["config_a"] = pp_config_a(cfg, ids, ref, fl, ce, card, dev)
+    if dev == "cuda":
+        want = (16 * L, 16 * L, 8, 4)
+        assert all(s == want for s in rows["config_a"]["per_step"]), \
+            (rows["config_a"]["per_step"], want)
+    b_launches = tuple(a - b for a, b in zip(st_counts(fl, ce), a_launches))
+    mid = st_counts(fl, ce)
+    rows["pipedream"] = pp_pipedream(cfg, ids, ref, fl, ce, card, dev)
+    rows["hetero"] = pp_hetero(cfg, ids, ref, card, dev)
+    cde = tuple(a - b for a, b in zip(st_counts(fl, ce), mid))
+    del ref
+    gc.collect()
+    rows["proc"] = pp_processes(cfg, ids, card, dev)
+    launches = st_counts(fl, ce)
+    print(f"phase 21 launches (flash fwd, bwd, CE fwd, bwd): (a) "
+          f"{a_launches}, (b) {b_launches}, (c)-(e) {cde}, in all {launches}")
+    assert dev != "cuda" or all(n > 0 for n in launches), launches
+    out = {"arms": rows, "launches": {"a": a_launches, "b": b_launches,
+                                      "cde": cde}}
+    if dev == "cuda":
+        gen = torch.Generator().manual_seed(21)
+        flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+        out["flash_mb"] = check_flash(fl, flush, torch.float32, 1024, gen,
+                                      timed=True, B=1, H=12)
+        out["flash_tp"] = check_flash(fl, flush, torch.float32, 1024, gen,
+                                      timed=True, B=1, H=6)
+        out["ce_mb"] = check_lm_head_ce(ce, flush, torch.float32, gen, card,
+                                        N=1023, extra=False)
+        out["ce_shard"] = st_shard_ce(ce, flush, gen, card, N=4092)
+        del flush
+        torch.cuda.empty_cache()
+    return out, time.monotonic() - t_start
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--ps-dp-worker"]:
         # phase 14 (c)'s worker processes: rank, port, device, batch
@@ -8745,6 +9367,14 @@ def main() -> int:
             return 2
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return st_worker(int(rank), int(n), coord, dev, json.loads(cfg_kw))
+    if sys.argv[1:2] == ["--pipeline-worker"]:
+        # phase 21 (f)'s two processes: rank, world, coordinator, device,
+        # the GPT config
+        rank, n, coord, dev, cfg_kw = sys.argv[2:7]
+        if dev == "cuda" and not torch.cuda.is_available():
+            return 2
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return pp_worker(int(rank), int(n), coord, dev, json.loads(cfg_kw))
     if sys.argv[1:2] in (["--nccl-world"], ["--nccl-pair"]):
         if not torch.cuda.is_available():
             return 2
@@ -9082,7 +9712,21 @@ def main() -> int:
         f" ms a step, gradient all-reduce {st['proc']['proc']['allreduce_ms']:.1f}"
         f" ms; plan {st['plan']['plan']}; {smi}")
 
-    phase("21 summary")
+    phase("21 pipelines: GPT-2 small through GPipe on a local pp=4 mesh, "
+          "config A's dp x tp x pp with ZeRO-1, interleaved 1F1B, "
+          "asynchronous PipeDream and HetPipe, heterogeneous dp, GPipe "
+          "across two processes")
+    pp, pp_s = pipeline_phase(fl, ce, gpt_mod, smi)
+    pa = pp["arms"]
+    print(f"phase 21 in {pp_s:.1f} s; median step ms GPipe pp=4 remat none "
+          f"{pa['none']['step_ms']:.1f}, full {pa['full']['step_ms']:.1f}, "
+          f"dp2 tp2 pp2 {pa['config_a']['step_ms']:.1f}; 1F1B V=3 grads "
+          f"{pa['pipedream']['sync']['ms']:.1f} ms; two processes "
+          f"{statistics.median(pa['proc']['step_ms']):.1f} ms a step; {smi}")
+    pl = pp["launches"]
+    mb = tuple(a + c for a, c in zip(pl["a"], pl["cde"]))
+
+    phase("22 summary")
     f32, bf16 = torch.float32, torch.bfloat16
     kernels = [
         dict(name="paged_decode_attention", route="cuda",
@@ -9181,6 +9825,52 @@ def main() -> int:
              path="strategies on a local mesh, timed on tp=2's vocabulary "
                   "shard N=4092 V_r=25129 (phase 20)",
              launches=st["launches"]["lm_head_ce_bwd"], **st["ce"][1]),
+        dict(name="flash_fwd_microbatch", route="cuda",
+             source="hetu_tpu_torch/csrc/flash_attn.cu",
+             replaces="hetu_tpu/ops/pallas/flash.py:191",
+             path="pipelines: GPipe, 1F1B, PipeDream and heterogeneous dp, "
+                  "timed at one microbatch B=1 H=12 (phase 21 (a), "
+                  "(c)-(e))", launches=mb[0], **pp["flash_mb"][0]),
+        dict(name="flash_bwd_microbatch", route="cuda",
+             source="hetu_tpu_torch/csrc/flash_attn.cu",
+             replaces="hetu_tpu/ops/pallas/flash.py:462",
+             path="pipelines: GPipe, 1F1B, PipeDream and heterogeneous dp, "
+                  "timed at one microbatch B=1 H=12 (phase 21 (a), "
+                  "(c)-(e))", launches=mb[1], **pp["flash_mb"][1]),
+        dict(name="flash_fwd_microbatch_tp2", route="cuda",
+             source="hetu_tpu_torch/csrc/flash_attn.cu",
+             replaces="hetu_tpu/ops/pallas/flash.py:191",
+             path="dp=2 tp=2 pp=2, a rank's microbatch B=1 H=6 (phase 21 "
+                  "(b))", launches=pl["b"][0], **pp["flash_tp"][0]),
+        dict(name="flash_bwd_microbatch_tp2", route="cuda",
+             source="hetu_tpu_torch/csrc/flash_attn.cu",
+             replaces="hetu_tpu/ops/pallas/flash.py:462",
+             path="dp=2 tp=2 pp=2, a rank's microbatch B=1 H=6 (phase 21 "
+                  "(b))", launches=pl["b"][1], **pp["flash_tp"][1]),
+        dict(name="lm_head_ce_fwd_microbatch", route="cuda",
+             source="hetu_tpu_torch/csrc/lm_head_ce.cu",
+             replaces="hetu_tpu/ops/pallas/lm_head.py:177",
+             path="pipelines: the head on the whole batch in GPipe, per "
+                  "microbatch in 1F1B and heterogeneous dp, timed at one "
+                  "microbatch N=1023 (phase 21 (a), (c)-(e))",
+             launches=mb[2], **pp["ce_mb"][0]),
+        dict(name="lm_head_ce_bwd_microbatch", route="cuda",
+             source="hetu_tpu_torch/csrc/lm_head_ce.cu",
+             replaces="hetu_tpu/ops/pallas/lm_head.py:202",
+             path="pipelines: the head on the whole batch in GPipe, per "
+                  "microbatch in 1F1B and heterogeneous dp, timed at one "
+                  "microbatch N=1023 (phase 21 (a), (c)-(e))",
+             launches=mb[3], **pp["ce_mb"][1]),
+        dict(name="lm_head_ce_fwd_pp_vocab_shard", route="cuda",
+             source="hetu_tpu_torch/csrc/lm_head_ce.cu",
+             replaces="hetu_tpu/ops/pallas/lm_head.py:177",
+             path="dp=2 tp=2 pp=2, a rank's N=4092 on V_r=25129 (phase 21 "
+                  "(b))", launches=pl["b"][2], **pp["ce_shard"][0]),
+        dict(name="lm_head_ce_bwd_pp_vocab_shard", route="cuda",
+             source="hetu_tpu_torch/csrc/lm_head_ce.cu",
+             replaces="hetu_tpu/ops/pallas/lm_head.py:202",
+             path="dp=2 tp=2 pp=2, a rank's N=4092 on V_r=25129 (phase 21 "
+                  "(b))", launches=pl["b"][3], **pp["ce_shard"][1]),
     ]
     print_predictions({
         ("flash_fwd", f32): fl_rows[f32][0],

@@ -44,9 +44,10 @@ import numpy as np
 import torch
 
 from hetu_tpu_torch.core.rng import get_seed_status, reset_seed_seqnum
-from hetu_tpu_torch.interop.from_jax import (state_dtypes, state_tensors,
+from hetu_tpu_torch.interop.from_jax import (stack_jax, stack_prefixes,
+                                            state_dtypes, state_tensors,
                                             to_jax_array, to_jax_layout,
-                                            transposed_names)
+                                            transposed_names, unstack_jax)
 from hetu_tpu_torch.obs import journal as _obs_journal
 from hetu_tpu_torch.obs import registry as _obs
 
@@ -166,6 +167,12 @@ def _layout(tree, model, optimizer_state: bool) -> frozenset:
     return frozenset()
 
 
+def _stacks(tree, model) -> dict:
+    """The model's block stacks, which the JAX layout stacks."""
+    model = tree if isinstance(tree, torch.nn.Module) else model
+    return stack_prefixes(model) if model is not None else {}
+
+
 def _dtypes(tree, model) -> dict:
     """The JAX dtypes of the model's integer state buffers."""
     model = tree if isinstance(tree, torch.nn.Module) else model
@@ -177,15 +184,17 @@ def state_dict(tree, *, model=None) -> dict:
     of a ``{name: tensor}`` dict of ``model``'s), or of an optimizer
     state ``{"step": n, slot: {name: tensor}}`` of ``model``'s
     parameters as ``{"step": n, slot: {name: numpy}}``."""
+    stacks = _stacks(tree, model)
     if isinstance(tree, dict) and "step" in tree:
         transposed = _layout(tree, model, True)
-        return {k: int(v) if k == "step" else
-                {n: _to_numpy(n, t, transposed, {}) for n, t in v.items()}
+        return {k: int(v) if k == "step" else stack_jax(
+                    {n: _to_numpy(n, t, transposed, {})
+                     for n, t in v.items()}, stacks)
                 for k, v in tree.items()}
     transposed = _layout(tree, model, False)
     dtypes = _dtypes(tree, model)
-    return {n: _to_numpy(n, t, transposed, dtypes)
-            for n, t in _named(tree).items()}
+    return stack_jax({n: _to_numpy(n, t, transposed, dtypes)
+                      for n, t in _named(tree).items()}, stacks)
 
 
 def load_state_dict(tree, sd: dict, *, model=None,
@@ -197,16 +206,18 @@ def load_state_dict(tree, sd: dict, *, model=None,
     With ``consider_splits`` a saved entry larger than the tensor is
     sliced down to fit (the reference's re-sharded reload); a smaller one
     raises either way."""
+    stacks = _stacks(tree, model)
     if isinstance(tree, dict) and "step" in tree:
         transposed = _layout(tree, model, True)
         for k in tree:
             if k == "step":
                 tree[k] = int(sd[k])
             elif k in sd:
-                _load_named(tree[k], sd[k], transposed, consider_splits)
+                _load_named(tree[k], unstack_jax(sd[k], stacks), transposed,
+                            consider_splits)
         return tree
-    _load_named(_named(tree), sd, _layout(tree, model, False),
-                consider_splits)
+    _load_named(_named(tree), unstack_jax(sd, stacks),
+                _layout(tree, model, False), consider_splits)
     return tree
 
 
@@ -260,13 +271,17 @@ def _load_sharded(sharded, model_sd: dict, opt_sd: dict,
                   consider_splits: bool) -> None:
     """:func:`load_trainer_state` for a ``ShardedModel``: the saved
     entries as whole tensors, each rank's pieces cut from them."""
-    transposed = transposed_names(sharded.models[0])
-    own = dict(sharded.models[0].named_parameters())
+    transposed = sharded.transposed
+    stacks = stack_prefixes(sharded.models[0])
     opt = sharded.opt_states[0]
 
-    def whole(sd, like):
-        out = {n: torch.empty(sharded.place[n].shape, dtype=like[n].dtype,
-                              device=like[n].device)
+    def whole(sd, slot: bool):
+        sd = unstack_jax(sd, stacks)
+        # a slot is fp32 whatever its parameter's type
+        out = {n: torch.empty(sharded.place[n].shape,
+                              dtype=(torch.float32 if slot
+                                     else sharded.place[n].dtype),
+                              device=sharded.mesh.device)
                for n in sd if n in sharded.place}
         _load_named(out, sd, transposed, consider_splits)
         return out
@@ -274,9 +289,10 @@ def _load_sharded(sharded, model_sd: dict, opt_sd: dict,
     for m in sharded.models:     # state buffers: whole on every rank
         _load_named({n: b for n, b in state_tensors(m).items()
                      if n not in sharded.place},
-                    model_sd, transposed, consider_splits)
-    sharded.load(whole(model_sd, own),
-                 {k: whole(v, opt[k]) for k, v in opt_sd.items()
+                    unstack_jax(model_sd, stacks), transposed,
+                    consider_splits)
+    sharded.load(whole(model_sd, False),
+                 {k: whole(v, True) for k, v in opt_sd.items()
                   if k != "step" and k in opt},
                  step=opt_sd.get("step"))
 

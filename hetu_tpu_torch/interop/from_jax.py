@@ -40,6 +40,13 @@ which holds every uint32), and :func:`export_params` gives it back in
 its declared JAX dtype.  (fp32 holds integers exactly only up to 2**24;
 a row id or a hash coefficient above that would cross corrupted.)
 
+A stack of blocks (``parallel.pipeline.Stack``, the blocks of a
+``Pipelined``) is one module in the JAX package whose leaves carry a
+leading ``[n_layers]`` dimension: ``<stack>.<leaf>`` there is
+``<stack>.<li>.<leaf>`` for each layer ``li`` here (:func:`unstack_jax`
+splits such leaves, :func:`stack_jax` stacks them back, each block's
+own leaves transposed where it declares them).
+
 Unknown names, missing names and shape mismatches raise ``ValueError``.
 
 ``export_params(model)`` is the inverse: ``{name: np.ndarray}`` in the
@@ -62,7 +69,8 @@ import torch
 
 __all__ = ["load_jax_params", "export_params", "state_tensors",
            "state_dtypes", "transposed_names", "to_jax_layout",
-           "to_jax_array", "copy_host_rows"]
+           "to_jax_array", "copy_host_rows", "stack_prefixes",
+           "stack_jax", "unstack_jax"]
 
 
 # the HBM layer's pending-refresh leaves, which the port applies inside
@@ -78,6 +86,69 @@ def transposed_names(model) -> frozenset:
             if getattr(mod, attr, None) is not None:
                 out.add(f"{prefix}.{attr}" if prefix else attr)
     return frozenset(out)
+
+
+def stack_prefixes(model) -> dict:
+    """``{prefix: n_layers}`` of every block stack in ``model``
+    (``parallel.pipeline.Stack``), which the JAX layout stacks into
+    ``[n_layers, ...]`` leaves."""
+    from hetu_tpu_torch.parallel.pipeline import Stack
+    return {prefix: len(mod) for prefix, mod in model.named_modules()
+            if isinstance(mod, Stack)}
+
+
+def _stacked_leaf(name: str, stacks: dict):
+    """``(prefix, rest)`` where ``name`` lies in a stack, else None."""
+    for prefix, n in stacks.items():
+        if name.startswith(prefix + "."):
+            return prefix, name[len(prefix) + 1:]
+    return None
+
+
+def unstack_jax(arrays: dict, stacks: dict) -> dict:
+    """JAX-layout ``{name: array}`` with each stack's ``[n_layers, ...]``
+    leaf split into its layers' names; a value may be a
+    ``{"dtype", "data"}`` tag of a checkpoint."""
+    out = {}
+    for name, a in arrays.items():
+        hit = _stacked_leaf(name, stacks)
+        if hit is None or hit[1].split(".", 1)[0].isdigit():
+            out[name] = a
+            continue
+        prefix, rest = hit
+        n = stacks[prefix]
+        data = a["data"] if isinstance(a, dict) else a
+        if np.shape(data)[:1] != (n,):
+            raise ValueError(f"{name}: a stacked leaf of shape "
+                             f"{np.shape(data)} for a stack of {n} layers")
+        for li in range(n):
+            piece = np.asarray(data)[li]
+            out[f"{prefix}.{li}.{rest}"] = (dict(a, data=piece)
+                                            if isinstance(a, dict)
+                                            else piece)
+    return out
+
+
+def stack_jax(arrays: dict, stacks: dict) -> dict:
+    """The inverse of :func:`unstack_jax`: each stack's layers' arrays
+    of one leaf stacked into ``<stack>.<leaf>``."""
+    out, groups = {}, {}
+    for name, a in arrays.items():
+        hit = _stacked_leaf(name, stacks)
+        if hit is None:
+            out[name] = a
+            continue
+        prefix, rest = hit
+        li, leaf = rest.split(".", 1)
+        groups.setdefault(f"{prefix}.{leaf}", {})[int(li)] = a
+    for name, by_layer in groups.items():
+        layers = [by_layer[li] for li in sorted(by_layer)]
+        if isinstance(layers[0], dict):
+            out[name] = dict(layers[0], data=np.stack(
+                [a["data"] for a in layers]))
+        else:
+            out[name] = np.stack(layers)
+    return out
 
 
 def state_dtypes(model) -> dict:
@@ -136,38 +207,43 @@ def load_jax_params(model, params) -> None:
     tensors."""
     from hetu_tpu_torch.parallel.strategies import sharded_of
     items = dict(params.items() if hasattr(params, "items") else params)
+    items = unstack_jax(items, stack_prefixes(model))
     copied = state_dtypes(model)
     buffers = {n for n, _ in model.named_buffers() if n not in copied}
     items = {n: a for n, a in items.items()
              if n not in buffers and not n.endswith(_JAX_STATE_ONLY)}
     own = state_tensors(model)
-    unknown = sorted(set(items) - set(own))
-    missing = sorted(set(own) - set(items))
+    sharded = sharded_of(model)
+    # under a strategy a rank's stack holds only its stage's blocks
+    known = set(own) | (set(sharded.place) if sharded is not None
+                        else set())
+    unknown = sorted(set(items) - known)
+    missing = sorted(known - set(items))
     if unknown or missing:
         raise ValueError(f"parameter names differ: unknown {unknown}, "
                          f"missing {missing}")
-    transposed = transposed_names(model)
-    sharded = sharded_of(model)
+    transposed = (transposed_names(model) if sharded is None
+                  else sharded.transposed)
     targets = ([own] if sharded is None
                else [state_tensors(m) for m in sharded.models])
     whole = {}
     with torch.no_grad():
         for name, arr in items.items():
             a = to_jax_layout(name, _from_jax_array(arr), transposed)
-            p = own[name]
-            shape = (sharded.place[name].shape
-                     if sharded is not None and name in sharded.place
-                     else tuple(p.shape))
+            placed = sharded is not None and name in sharded.place
+            dtype = sharded.place[name].dtype if placed else own[name].dtype
+            shape = (sharded.place[name].shape if placed
+                     else tuple(own[name].shape))
             if tuple(a.shape) != shape:
                 raise ValueError(f"{name}: JAX shape {np.shape(arr)} does "
                                  f"not map onto {shape}")
-            if a.is_floating_point() != p.is_floating_point():
+            if a.is_floating_point() != dtype.is_floating_point:
                 raise ValueError(f"{name}: a JAX {np.asarray(arr).dtype} "
-                                 f"array does not map onto {p.dtype}")
-            v = a.to(p.dtype)
+                                 f"array does not map onto {dtype}")
+            v = a.to(dtype)
             if not a.is_floating_point() and not torch.equal(v.long(), a):
-                raise ValueError(f"{name}: JAX values do not fit {p.dtype}")
-            if sharded is not None and name in sharded.place:
+                raise ValueError(f"{name}: JAX values do not fit {dtype}")
+            if placed:
                 whole[name] = v
             else:
                 for t in targets:
@@ -187,9 +263,11 @@ def export_params(model) -> dict:
     tensors = state_tensors(model)
     sharded = sharded_of(model)
     if sharded is not None:
+        transposed = sharded.transposed
         tensors.update(sharded.full_parameters())
-    return {name: to_jax_array(name, p, transposed, dtypes)
-            for name, p in tensors.items()}
+    return stack_jax({name: to_jax_array(name, p, transposed, dtypes)
+                      for name, p in tensors.items()},
+                     stack_prefixes(model))
 
 
 def _host_tables(layer) -> list:

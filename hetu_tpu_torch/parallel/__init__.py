@@ -2,11 +2,13 @@
 local mesh whose ranks share this process's device, and a process mesh
 over a ``torch.distributed`` world), the collectives over both, the
 sharding algebra and logical-axis rules (``spec``), the strategies —
-data parallelism, ZeRO 1-3 and Megatron tensor parallelism, run by the
-``Trainer`` through ``strategy=`` — the sequence-parallel cores (ring
-attention and Ulysses) and the auto-parallel search
-(``parallel.autoparallel``).  Pipelines wait for ROADMAP queue 1 item 10
-part 3."""
+data parallelism, ZeRO 1-3 and Megatron tensor parallelism, with
+pipelines over ``pp``, run by the ``Trainer`` through ``strategy=`` —
+the pipelines themselves (GPipe, ``pipeline``; synchronous, interleaved
+and asynchronous 1F1B with HetPipe's dp mean, ``pipedream``;
+heterogeneous dp degrees per stage, ``hetero``), the sequence-parallel
+cores (ring attention and Ulysses) and the auto-parallel search
+(``parallel.autoparallel``)."""
 
 from hetu_tpu_torch.parallel.mesh import (DEFAULT_AXES, LocalMesh, MeshSpec,
                                           ProcessMesh, local_mesh_size,
@@ -18,6 +20,15 @@ from hetu_tpu_torch.parallel.spec import (DP_RULES, MEGATRON_RULES, AxisRules,
                                           transition)
 from hetu_tpu_torch.parallel.strategies import (DataParallel, MegatronTP,
                                                 ShardingStrategy, ZeRO)
+from hetu_tpu_torch.parallel.pipeline import (Pipelined, spmd_pipeline,
+                                              stack_modules, stage_partition)
+from hetu_tpu_torch.parallel.pipedream import (interleave_stages,
+                                               pipedream_grads,
+                                               pipedream_schedule_stats,
+                                               pipedream_train_step,
+                                               uninterleave_stages)
+from hetu_tpu_torch.parallel.hetero import (HeteroPipeline, HeteroStage,
+                                            plan_hetero_dp)
 from hetu_tpu_torch.parallel.collectives import (all_to_all, ppermute,
                                                  send_next)
 from hetu_tpu_torch.parallel.ring_attention import (ring_attention,
@@ -32,6 +43,10 @@ __all__ = ["DEFAULT_AXES", "LocalMesh", "MeshSpec", "ProcessMesh",
            "AxisRules", "PartitionSpec", "ShardState", "gather_param",
            "logical_axes", "resolve_specs", "shard_param", "transition",
            "DataParallel", "MegatronTP", "ShardingStrategy", "ZeRO",
+           "Pipelined", "spmd_pipeline", "stack_modules", "stage_partition",
+           "interleave_stages", "pipedream_grads", "pipedream_schedule_stats",
+           "pipedream_train_step", "uninterleave_stages", "HeteroPipeline",
+           "HeteroStage", "plan_hetero_dp",
            "all_to_all", "ppermute", "send_next", "ring_attention",
            "ring_attn_fn", "ring_flash_attention", "ulysses_attention",
            "ulysses_attn_fn", "collectives"]

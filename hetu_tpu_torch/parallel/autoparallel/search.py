@@ -487,9 +487,9 @@ def pipeopt_search(layers: Sequence[LayerSpec], cluster: ClusterSpec,
 def plan_to_strategy(plan: Plan, *, rules=None, devices=None):
     """Materialize a Plan as (MeshSpec, ShardingStrategy kwargs) for the
     runtime (``parallel/strategies.py``): ``ShardingStrategy(mesh=
-    make_mesh(spec, ...), **kwargs)``.  A plan with ``pp > 1`` gives a
-    spec that ``make_mesh`` refuses until the pipelines land (ROADMAP
-    queue 1 item 10 part 3)."""
+    make_mesh(spec, ...), **kwargs)``.  A plan with ``pp > 1`` runs a
+    model whose blocks are a ``parallel.pipeline.Pipelined`` built on
+    that mesh, its stack split over ``pp``."""
     from hetu_tpu_torch.parallel.mesh import MeshSpec
     from hetu_tpu_torch.parallel.spec import MEGATRON_RULES
     d = plan.dominant

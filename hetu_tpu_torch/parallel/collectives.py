@@ -25,8 +25,11 @@ gradients on both meshes, as ``torch.autograd.Function``\\ s:
 :func:`all_reduce` (sum forward, identity backward: each rank keeps its
 own upstream gradient), :func:`copy_to_group` (identity forward, sum of
 the group's gradients backward) and :func:`gather_from_group` (tiled
-gather forward, each rank's slice of its own gradient backward).  The
-others carry no gradient across processes.
+gather forward, each rank's slice of its own gradient backward).
+:func:`ppermute` carries its gradient across processes too: its
+backward is the permutation's inverse, as ``lax.ppermute``'s transpose
+is (the pipelines' activation hops, ``parallel.pipeline``).  The others
+carry no gradient across processes.
 
 **Backends.**  Where the process group's backend lacks an op for the
 tensor's device (gloo with CUDA tensors takes ``all_reduce`` and
@@ -434,42 +437,19 @@ def broadcast(shards: list, axis=None, root: int = 0, *,
     return out
 
 
-def ppermute(shards: list, perm, axis=None, *, mesh=None) -> list:
+def ppermute(shards: list, perm, axis=None, *, mesh=None,
+             after=None) -> list:
     """Point-to-point permutation within each group: for each
     ``(src, dst)`` pair of ``perm`` (indices on ``axis``), rank ``dst``
     receives rank ``src``'s shard; a rank that receives nothing gets
-    zeros, as ``lax.ppermute`` gives."""
+    zeros, as ``lax.ppermute`` gives.  ``after`` (a process mesh):
+    another permutation's output whose backward must wait for this
+    one's, so that every process runs a chain of them backward in one
+    order (the pipelines pass the previous hop's)."""
     perm = [(int(s), int(d)) for s, d in perm]
     if _process(mesh):
-        x = shards[0]
-        _, ranks = mesh.group(axis)
-        at = ranks.index(mesh.rank)
-        srcs = [s for s, d in perm if d == at]
-        dsts = [d for s, d in perm if s == at]
-
-        def native():
-            import torch.distributed as dist
-            xc = x.detach().contiguous()
-            got = torch.zeros_like(xc)
-            # a rank's shard to itself is a copy, not a message
-            ops = [dist.P2POp(dist.isend, xc, ranks[d]) for d in dsts
-                   if d != at]
-            ops += [dist.P2POp(dist.irecv, got, ranks[s]) for s in srcs
-                    if s != at]
-            if at in srcs:
-                got.copy_(xc)
-            if ops:
-                for req in dist.batch_isend_irecv(ops):
-                    req.wait()
-            return got
-
-        def composed_call():
-            parts = _dist_gather(x, mesh, axis)
-            return parts[srcs[0]] if srcs else torch.zeros_like(x)
-
-        composed = not _native(mesh, x, "ppermute")
-        return [_run("ppermute", mesh, x,
-                     composed_call if composed else native, composed)]
+        return [_ProcPermute.apply(shards[0], mesh, axis, tuple(perm),
+                                   after)]
     _count("ppermute", [x for x in shards if isinstance(x, torch.Tensor)])
     out = list(shards)
     for g in _groups(shards, axis, mesh):
@@ -477,6 +457,51 @@ def ppermute(shards: list, perm, axis=None, *, mesh=None) -> list:
         for i in g:
             out[i] = got[i] if i in got else torch.zeros_like(shards[i])
     return out
+
+
+def _proc_permute(x, mesh, axis, perm):
+    """This process's piece after ``perm`` over ``axis``'s group."""
+    _, ranks = mesh.group(axis)
+    at = ranks.index(mesh.rank)
+    srcs = [s for s, d in perm if d == at]
+    dsts = [d for s, d in perm if s == at]
+
+    def native():
+        import torch.distributed as dist
+        xc = x.detach().contiguous()
+        got = torch.zeros_like(xc)
+        # a rank's shard to itself is a copy, not a message
+        ops = [dist.P2POp(dist.isend, xc, ranks[d]) for d in dsts
+               if d != at]
+        ops += [dist.P2POp(dist.irecv, got, ranks[s]) for s in srcs
+                if s != at]
+        if at in srcs:
+            got.copy_(xc)
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return got
+
+    def composed_call():
+        parts = _dist_gather(x, mesh, axis)
+        return parts[srcs[0]] if srcs else torch.zeros_like(x)
+
+    composed = not _native(mesh, x, "ppermute")
+    return _run("ppermute", mesh, x, composed_call if composed else native,
+                composed)
+
+
+class _ProcPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, perm, after):
+        ctx.mesh, ctx.axis = mesh, axis
+        ctx.inverse = tuple((d, s) for s, d in perm)
+        return _proc_permute(x, mesh, axis, perm)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (_proc_permute(dy.contiguous(), ctx.mesh, ctx.axis,
+                              ctx.inverse), None, None, None, None)
 
 
 def _ring(shards, axis, mesh, step: int) -> list:

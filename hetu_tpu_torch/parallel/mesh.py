@@ -9,18 +9,20 @@ one interface (``shape``, ``axis_names``, ``ranks()``, ``held``):
   of a multi-card run would have (``parallel.ranks``), and a collective
   is a re-index, a sum or a concatenation of the ranks' tensors.  That
   is the port's counterpart of the JAX tests' virtual CPU devices.  It
-  admits ``dp`` and ``tp`` (together), ``sp`` alone (ring and Ulysses
-  attention) and ``ep`` alone (``layers.moe.MoELayer``).
+  admits ``pp``, ``dp`` and ``tp`` (together; ``parallel.pipeline``,
+  ``parallel.pipedream``), ``sp`` alone (ring and Ulysses attention) and
+  ``ep`` alone (``layers.moe.MoELayer``).
 * :class:`ProcessMesh`: one rank per process of a ``torch.distributed``
   world (``launch.initialize``); a collective calls ``torch.distributed``
-  over the process group of its axis.  It admits ``dp`` and ``tp``.
+  over the process group of its axis.  It admits ``pp``, ``dp`` and
+  ``tp``.
 
-A rank's coordinates run over ``DEFAULT_AXES`` in row-major order, ``tp``
-innermost, as a JAX mesh built by ``make_mesh`` orders its devices, so
-rank ``r`` of a mesh is the ``r``-th device of the JAX mesh of the same
-spec.  Refused, each naming its item of ROADMAP queue 1: ``pp > 1``
-(item 10 part 3, pipelines), ``sp`` beside another axis (part 4) and
-``ep`` beside another axis (part 5).
+A rank's coordinates run over ``DEFAULT_AXES`` in row-major order, ``pp``
+outermost and ``tp`` innermost, as a JAX mesh built by ``make_mesh``
+orders its devices, so rank ``r`` of a mesh is the ``r``-th device of the
+JAX mesh of the same spec.  Refused, each naming its item of ROADMAP
+queue 1: ``sp`` beside another axis (part 4) and ``ep`` beside another
+axis (part 5).
 """
 
 from __future__ import annotations
@@ -61,10 +63,6 @@ class MeshSpec:
 def _check_axes(spec: MeshSpec) -> None:
     wide = {a: getattr(spec, a) for a in DEFAULT_AXES
             if getattr(spec, a) > 1}
-    if spec.pp > 1:
-        raise NotImplementedError(
-            f"pp={spec.pp}: pipelines wait for ROADMAP queue 1 item 10 "
-            f"part 3")
     for axis, part in (("sp", 4), ("ep", 5)):
         if axis in wide and len(wide) > 1:
             raise NotImplementedError(

@@ -10,19 +10,23 @@ rank this process holds:
   calls ``torch.distributed``;
 * on a local mesh, every rank of the mesh, each in a thread of its own
   that runs only while it holds the baton: rank 0 runs until its first
-  collective, hands the baton to rank 1, and so on; the last rank to
-  arrive runs the collective over all the ranks' tensors at once (one
-  list call of ``parallel.collectives``, so one autograd node spans the
-  ranks and the backward, run afterwards in one call, meets each
-  collective once) and hands the baton back to rank 0.  One thread runs
-  at a time, always in the same order: the ranks' kernels are launched
-  in one order on one stream, every counter is exact and two runs are
-  bitwise equal.
+  collective, hands the baton to rank 1, and so on; the last rank of a
+  group of the collective's axis to arrive runs the collective over the
+  group's tensors (one list call of ``parallel.collectives``, so one
+  autograd node spans the group and the backward, run afterwards in
+  one call, meets each collective once), and the baton goes on, round
+  the ranks, to the next one that is not waiting for its group.  One
+  thread runs at a time, always in the same order: the ranks' kernels
+  are launched in one order on one stream, every counter is exact and
+  two runs are bitwise equal.  Groups meet apart, so the ranks of one
+  pipeline stage may meet over ``tp`` while another stage's ranks idle
+  in the pipeline's bubble (``parallel.pipeline``).
 
 The threads take the caller's grad mode and, on the card, its current
-stream.  Every rank must reach the same collectives in the same order
-(the SPMD contract); a rank that raises ends the run and the error is
-raised in the caller.
+stream.  The ranks of a group must reach the same collectives in the
+same order (the SPMD contract); a rank that raises ends the run and the
+error is raised in the caller, as does a state where every rank left
+waits for a group that cannot complete.
 """
 
 from __future__ import annotations
@@ -47,9 +51,10 @@ class _LocalRun:
         self.n = n
         self.cv = threading.Condition()
         self.turn = 0
-        self.slots = [None] * n
-        self.outs = None
-        self.op_name = [None] * n
+        self.waiting = [False] * n
+        self.done = [False] * n
+        self.pending = {}    # a group's members -> {member: (name, x)}
+        self.outs = [None] * n
         self.error = None
 
     def _wait(self, me):
@@ -59,26 +64,46 @@ class _LocalRun:
             raise _Aborted
 
     def _pass(self, me):
-        self.turn = (me + 1) % self.n
+        """The baton to the next rank after ``me`` (``me`` last) that
+        runs: neither done nor waiting for its group."""
+        for k in range(1, self.n + 1):
+            j = (me + k) % self.n
+            if not self.done[j] and not self.waiting[j]:
+                self.turn = j
+                self.cv.notify_all()
+                return
+        self.turn = None
+        if any(self.waiting):
+            self.error = RuntimeError(
+                f"ranks {[i for i in range(self.n) if self.waiting[i]]} "
+                f"wait for collectives whose groups cannot complete: "
+                f"{sorted(self.pending)}")
         self.cv.notify_all()
 
-    def exchange(self, me: int, name: str, op: Callable, x):
+    def exchange(self, me: int, members: tuple, name: str, op: Callable,
+                 x):
+        """Rank ``me``'s ``x`` into the collective of its group
+        ``members`` (held indices, group order); ``op`` maps the group's
+        tensors to their results.  Returns ``me``'s result."""
         with self.cv:
-            self.slots[me] = x
-            self.op_name[me] = name
-            if me < self.n - 1:
-                self._pass(me)
+            slot = self.pending.setdefault(members, {})
+            slot[me] = (name, x)
+            if len(slot) < len(members):
+                self.waiting[me] = True
             else:
-                if len(set(self.op_name)) != 1:
+                del self.pending[members]
+                names = [slot[m][0] for m in members]
+                if len(set(names)) != 1:
                     raise RuntimeError(
-                        f"the ranks reached different collectives: "
-                        f"{self.op_name}")
-                self.outs = op(list(self.slots))
-                self.slots = [None] * self.n
-                self.turn = 0
-                self.cv.notify_all()
+                        f"the ranks reached different collectives: {names}")
+                outs = op([slot[m][1] for m in members])
+                for m, o in zip(members, outs):
+                    self.outs[m] = o
+                    self.waiting[m] = False
+            self._pass(me)
             self._wait(me)
-            return self.outs[me]
+            out, self.outs[me] = self.outs[me], None
+            return out
 
     def body(self, me, fn, results, grad, stream):
         try:
@@ -89,6 +114,7 @@ class _LocalRun:
                     self._wait(me)
                 results[me] = fn()
                 with self.cv:
+                    self.done[me] = True
                     self._pass(me)
         except _Aborted:
             pass
@@ -152,6 +178,22 @@ class RankHandle:
         if _ACTIVE is None:
             raise RuntimeError("a rank of a local mesh meets the others "
                                "only inside run_ranks")
+        rank = self.mesh.held[self.index]
+        group = next(g for g in self.mesh.groups(axis) if rank in g)
+        members = tuple(self.mesh.held.index(r) for r in group)
+        view = _GroupView(self.mesh, len(group))
         return _ACTIVE.exchange(
-            self.index, getattr(fn, "__name__", str(fn)),
-            lambda xs: fn(xs, axis, mesh=self.mesh, **kw), x)
+            self.index, members, getattr(fn, "__name__", str(fn)),
+            lambda xs: fn(xs, axis, mesh=view, **kw), x)
+
+
+class _GroupView:
+    """One group of a local mesh's axis as a list collective sees its
+    mesh: one group, every rank of it in the list."""
+
+    def __init__(self, mesh, size: int):
+        self.shape, self.device, self.size = mesh.shape, mesh.device, size
+        self.axis_names = mesh.axis_names
+
+    def groups(self, axis) -> list:
+        return [list(range(self.size))]

@@ -45,8 +45,8 @@ import torch
 
 __all__ = [
     "PartitionSpec", "P", "ShardState", "transition", "AxisRules",
-    "resolve_specs", "logical_axes", "MEGATRON_RULES", "DP_RULES",
-    "shard_index", "shard_param", "gather_param",
+    "resolve_specs", "logical_axes", "stacked_names", "MEGATRON_RULES",
+    "DP_RULES", "shard_index", "shard_param", "gather_param",
 ]
 
 
@@ -208,11 +208,30 @@ def _declared(mod) -> dict:
     return getattr(mod, "_logical_axes", None) or {}
 
 
+def stacked_names(model) -> dict:
+    """``{name: (stack axis, layer index, layers)}`` for every parameter
+    of a block in a stack whose layers carry a logical axis
+    (``parallel.pipeline.Stack``; the JAX package's ``[n_layers, ...]``
+    leaves)."""
+    out = {}
+    for prefix, mod in model.named_modules():
+        axis = getattr(mod, "stack_axis", None)
+        if axis is None or not isinstance(mod, torch.nn.ModuleList):
+            continue
+        for li, blk in enumerate(mod):
+            for q, _ in blk.named_parameters():
+                out[f"{prefix}.{li}.{q}" if prefix else f"{li}.{q}"] = (
+                    axis, li, len(mod))
+    return out
+
+
 def logical_axes(model) -> dict:
     """``{name: PartitionSpec}`` of every parameter of ``model`` in
     torch's layout: the declared JAX-layout axes, reversed for a weight
     the module stores transposed (``_jax_transposed``); ``P()`` where
-    nothing is declared."""
+    nothing is declared.  A parameter of a stacked block
+    (:func:`stacked_names`) has one entry more, first: its stack's axis
+    (``layers``), the JAX layout's leading dimension."""
     out = {}
     for prefix, mod in model.named_modules():
         axes = _declared(mod)
@@ -225,6 +244,11 @@ def logical_axes(model) -> dict:
                 continue
             ax = tuple(a if a else None for a in ax)
             out[name] = P(*(reversed(ax) if attr in transposed else ax))
+    params = dict(model.named_parameters())
+    for name, (axis, _, _) in stacked_names(model).items():
+        spec = tuple(out[name])
+        spec += (None,) * (params[name].dim() - len(spec))
+        out[name] = P(axis, *spec)
     return out
 
 

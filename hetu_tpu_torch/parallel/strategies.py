@@ -46,13 +46,30 @@ itself, each one counted (``parallel.collectives.counts``):
   forward (the tied head).  Stage 3 with a remat policy is refused: the
   recomputation would run the hooks in the backward.
 
+* **Pipelines** (``pp > 1``; ``parallel.pipeline``).  The rules place
+  a stack's layers (``layers`` -> ``pp``): a rank's module holds only its
+  stage's blocks, with their tp shards, and its ``Pipelined`` runs the
+  rank's part of the wavefront.  ZeRO applies its rule to the JAX
+  layout, where a stacked block's dimension 0 is ``layers``: no block's
+  slots are sharded, only the other parameters'.  Every pp rank runs
+  the model's head on the published output, and the backward is seeded
+  from the last stage's loss alone (on a process mesh the other stages
+  seed their hop chains with zeros, ``Pipelined.sinks``); a parameter
+  replicated over pp (the embedding, a tied head, the final norm) gets
+  the sum over pp of its ranks' gradients (one bucket, before the dp
+  mean), each part once.  A model without a stack under ``pp > 1`` is
+  replicated over pp: the last stage's gradients alone reach it.
+
 Under a strategy each rank draws dropout from the step's key as if it
 were alone, so with dropout the ranks' masks are not the slices of one
 global mask (the traces equal the unsharded ones at rate 0).  Refused,
-with an error that says so: ``pp > 1`` (``MegatronLM``; item 10 part 3),
-LAMB and a global-norm clip when a parameter or its slots are sharded
-(their norms would need a reduction across ranks), and models with
-floating state buffers (BatchNorm statistics) over dp > 1.
+with an error that says so: LAMB and a global-norm clip when a parameter
+or its slots are sharded (their norms would need a reduction across
+ranks), models with floating state buffers (BatchNorm statistics) over
+dp > 1, a pipeline stage under a remat policy with ``tp > 1`` on a local
+mesh (the recomputation in the backward would meet the other ranks
+outside their run) and ZeRO over the layers of a stack the rules leave
+unplaced.
 """
 
 from __future__ import annotations
@@ -72,7 +89,7 @@ from hetu_tpu_torch.parallel.spec import (DP_RULES, MEGATRON_RULES, P,
                                           AxisRules, blocks_of,
                                           gather_param, logical_axes,
                                           resolve_specs, shard_index,
-                                          shard_param)
+                                          shard_param, stacked_names)
 
 __all__ = [
     "ShardingStrategy", "ShardedModel", "DataParallel", "MegatronTP",
@@ -135,9 +152,20 @@ class ShardingStrategy:
         from hetu_tpu_torch.interop.from_jax import transposed_names
         transposed = transposed_names(model)
         params = dict(model.named_parameters())
-        return {n: self._zero_shard(s, tuple(params[n].shape),
-                                    n in transposed)
-                for n, s in specs.items()}
+        stacked = stacked_names(model)
+        out = {}
+        for n, s in specs.items():
+            if n not in stacked:
+                out[n] = self._zero_shard(s, tuple(params[n].shape),
+                                          n in transposed)
+            elif s and s[0] is not None or self.mesh.shape["dp"] == 1:
+                # the JAX layout's dimension 0 is the stack's: sharded
+                out[n] = s
+            else:
+                raise NotImplementedError(
+                    f"{n}: ZeRO over the layers of a stack that the rules "
+                    f"leave unplaced")
+        return out
 
     def _zero_shard(self, spec, shape: tuple, transposed: bool = False):
         """Shard the JAX layout's dimension 0 (torch's last for a weight
@@ -171,13 +199,17 @@ class ShardingStrategy:
 @dataclasses.dataclass
 class _Place:
     """One parameter's placement: the full shape, the tp spec (its
-    non-dp mesh axes), the per-dimension block counts, and the ZeRO
-    dimension (None where the parameter is not ZeRO-sharded)."""
+    non-dp, non-pp mesh axes), the per-dimension block counts, the ZeRO
+    dimension (None where the parameter is not ZeRO-sharded), its type
+    and, for a stacked block's, the pp stage that holds it (None: every
+    stage)."""
 
     shape: tuple
     tp_spec: tuple
     blocks: tuple
     zdim: Optional[int]
+    dtype: torch.dtype = torch.float32
+    stage: Optional[int] = None   # a stacked block's pp stage
 
 
 class ShardedModel:
@@ -189,7 +221,8 @@ class ShardedModel:
     two)."""
 
     def __init__(self, strategy: ShardingStrategy, mesh, model, optimizer):
-        from hetu_tpu_torch.interop.from_jax import state_tensors
+        from hetu_tpu_torch.interop.from_jax import (state_tensors,
+                                                     transposed_names)
         from hetu_tpu_torch.optim.optimizers import LambOptimizer
         self.strategy, self.mesh = strategy, mesh
         dev = next(model.parameters()).device
@@ -216,20 +249,38 @@ class ShardedModel:
                   else specs)
         logical = logical_axes(model)
         shape = mesh.shape
+        self.pp = shape["pp"]
+        self.stacked = stacked_names(model)
+        self.transposed = transposed_names(model)
+        self._refuse_local_remat(model, mesh)
         self.place = {}
         for name, p in model.named_parameters():
-            ent = [self._live(e, shape)
-                   for e in _entries(specs[name], p.dim())]
-            if any(e is not None and "dp" in e for e in ent):
+            spec, lg, stage = specs[name], logical[name], None
+            if name in self.stacked:
+                lead = self._live(spec[0], shape)
+                spec, lg = P(*spec[1:]), P(*lg[1:])
+                _, li, n = self.stacked[name]
+                if lead is not None and lead != ("pp",):
+                    raise NotImplementedError(
+                        f"{name}: a stack's layers over {lead}")
+                if self.pp > 1:
+                    if lead is None or n % self.pp:
+                        raise ValueError(
+                            f"{name}: a stack of {n} layers that the rules "
+                            f"do not split over pp={self.pp}")
+                    stage = li // (n // self.pp)
+            ent = [self._live(e, shape) for e in _entries(spec, p.dim())]
+            if any(e is not None and ("dp" in e or "pp" in e)
+                   for e in ent):
                 raise NotImplementedError(
-                    f"{name}: rules that shard a parameter over dp")
+                    f"{name}: rules that shard a parameter over dp or pp")
             tp_spec = tuple(None if e is None else
                             (e[0] if len(e) == 1 else e) for e in ent)
             zdim = next((d for d, e in enumerate(
                 _entries(zspecs[name], p.dim())) if e == "dp"), None)
             self.place[name] = _Place(
-                tuple(p.shape), tp_spec,
-                blocks_of(_entries(logical[name], p.dim())), zdim)
+                tuple(p.shape), tp_spec, blocks_of(_entries(lg, p.dim())),
+                zdim, p.dtype, stage)
         self.shards_params = any(any(e is not None for e in pl.tp_spec)
                                  for pl in self.place.values())
         self.shards_grads = self.shards_params or any(
@@ -269,6 +320,23 @@ class ShardedModel:
             for r in self.held]
 
     @staticmethod
+    def _refuse_local_remat(model, mesh) -> None:
+        from hetu_tpu_torch.parallel.pipeline import Pipelined
+        if hasattr(mesh, "group") or mesh.shape["tp"] == 1:
+            return
+        for name, mod in model.named_modules():
+            if isinstance(mod, Pipelined) and mod.remat != "none":
+                raise NotImplementedError(
+                    f"{name or 'model'}: a pipeline stage under "
+                    f"remat={mod.remat!r} with tp={mesh.shape['tp']} on a "
+                    f"local mesh: the recomputation in the backward would "
+                    f"meet the other ranks outside their run; build it "
+                    f"with remat='none'")
+
+    def _last_stage(self, i: int) -> bool:
+        return self.pp == 1 or self.coords[i]["pp"] == self.pp - 1
+
+    @staticmethod
     def _live(entry, shape):
         """An entry's mesh axes of size above 1 (a tuple), or None."""
         if entry is None:
@@ -279,7 +347,11 @@ class ShardedModel:
 
     # -- placement ------------------------------------------------------------
     def _shard_module(self, i: int, model) -> None:
+        from hetu_tpu_torch.parallel.pipeline import Pipelined
         c, shape = self.coords[i], self.mesh.shape
+        for mod in model.modules():
+            if isinstance(mod, Pipelined):
+                mod._pp_setup(self.handles[i], c, shape)
         stacked = {f"{p}.{q}" if p else q
                    for p, m in model.named_modules()
                    if isinstance(m, torch.nn.ModuleList)
@@ -466,7 +538,26 @@ class ShardedModel:
                 p.grad = None
         pieces = self.split_batch(batch)
         out = self.run(lambda i: loss_fn(self.models[i], pieces[i], key))
-        torch.autograd.backward([o[0] for o in out])
+        roots, seeds = [], []
+        for i, o in enumerate(out):
+            if self._last_stage(i):
+                roots.append(o[0])
+                seeds.append(torch.ones_like(o[0]))
+            for sink in self._take_sinks(i):
+                if sink.requires_grad:
+                    roots.append(sink)
+                    seeds.append(torch.zeros_like(sink))
+        torch.autograd.backward(roots, seeds)
+        return out
+
+    def _take_sinks(self, i: int) -> list:
+        """Rank ``i``'s pipelines' hop-chain ends of the last forward."""
+        from hetu_tpu_torch.parallel.pipeline import Pipelined
+        out = []
+        for mod in self.models[i].modules():
+            if isinstance(mod, Pipelined):
+                out += mod.sinks
+                mod.sinks = []
         return out
 
     def mean_loss(self, losses: list):
@@ -491,20 +582,14 @@ class ShardedModel:
                 g[name] = (p.grad if p.grad is not None
                            else torch.zeros_like(p))
             grads.append(g)
+        if self.pp > 1:
+            self._bucket(grads, lambda nm: self.place[nm].stage is None,
+                         lambda f: col.all_reduce(f, "pp", mesh=self.mesh))
         if self.dp == 1:
             return grads
         zero = set(self._zero_names())
-        dense = [nm for nm in grads[0] if nm not in zero]
-        if dense:
-            flats = [torch.cat([grads[i][nm].reshape(-1) for nm in dense])
-                     for i in range(n)]
-            red = col.all_reduce_mean(flats, "dp", mesh=self.mesh)
-            for i in range(n):
-                off = 0
-                for nm in dense:
-                    k = grads[i][nm].numel()
-                    grads[i][nm] = red[i][off:off + k].view_as(grads[i][nm])
-                    off += k
+        self._bucket(grads, lambda nm: nm not in zero,
+                     lambda f: col.all_reduce_mean(f, "dp", mesh=self.mesh))
         if zero and self.stage < 3:
             names = [nm for nm in grads[0] if nm in zero]
             flats = []
@@ -527,6 +612,23 @@ class ShardedModel:
                     grads[i][nm] = mine[off:off + k].view(shp)
                     off += k
         return grads
+
+    @staticmethod
+    def _bucket(grads: list, pick, reduce) -> None:
+        """Each rank's gradients that ``pick`` names, flattened into one
+        bucket, through ``reduce`` (a list collective) and back."""
+        names = [[nm for nm in g if pick(nm)] for g in grads]
+        if not any(names):
+            return
+        flats = [torch.cat([g[nm].reshape(-1) for nm in ns])
+                 for g, ns in zip(grads, names)]
+        red = reduce(flats)
+        for g, ns, r in zip(grads, names, red):
+            off = 0
+            for nm in ns:
+                k = g[nm].numel()
+                g[nm] = r[off:off + k].view_as(g[nm])
+                off += k
 
     def update(self, optimizer, grads: list) -> None:
         """The optimizer on each rank's tensors (:meth:`_update_params`),
@@ -583,15 +685,30 @@ class ShardedModel:
                                      mesh=self.mesh)
                 for pr, g in zip(per_rank, got):
                     pr[name] = g
+        local = len(self.held) == self.mesh.size
         for name, pl in self.place.items():
-            if all(e is None for e in pl.tp_spec):
-                out[name] = per_rank[0][name].detach().clone()
+            holders = [k for k, pr in enumerate(per_rank) if name in pr]
+            if all(e is None for e in pl.tp_spec) and (
+                    local or pl.stage is None):
+                out[name] = per_rank[holders[0]][name].detach().clone()
                 continue
-            if len(self.held) == self.mesh.size:
-                pieces = [pr[name] for pr in per_rank]
+            if local:
+                pieces = [per_rank[k][name] for k in holders]
+                coords = [every[self.held[k]] for k in holders]
             else:
-                pieces = self._gather_pieces(per_rank[0][name], pl, every)
-            out[name] = gather_param(pieces, pl.shape, pl.tp_spec, every,
+                mine = per_rank[0].get(name)
+                if mine is None:     # another stage's block: a stand-in
+                    mine = torch.zeros(
+                        [len(ix) for ix in shard_index(
+                            pl.shape, pl.tp_spec, self.coords[0], shape,
+                            pl.blocks)],
+                        dtype=pl.dtype, device=self.mesh.device)
+                got = self._gather_pieces(mine, pl, every)
+                owners = [r for r in range(self.mesh.size)
+                          if pl.stage is None or every[r]["pp"] == pl.stage]
+                pieces = [got[r] for r in owners]
+                coords = [every[r] for r in owners]
+            out[name] = gather_param(pieces, pl.shape, pl.tp_spec, coords,
                                      shape, pl.blocks)
         return out
 
@@ -606,12 +723,14 @@ class ShardedModel:
         for i, m in enumerate(self.models):
             own = dict(m.named_parameters())
             for name, full in params.items():
-                own[name].copy_(self._piece(full, name, i,
-                                            zero=self.stage >= 3))
+                if name in own:     # another stage's block is elsewhere
+                    own[name].copy_(self._piece(full, name, i,
+                                                zero=self.stage >= 3))
             for slot, named in (slots or {}).items():
                 for name, full in named.items():
-                    self.opt_states[i][slot][name].copy_(
-                        self._piece(full, name, i, zero=True))
+                    if name in own:
+                        self.opt_states[i][slot][name].copy_(
+                            self._piece(full, name, i, zero=True))
             if step is not None:
                 self.opt_states[i]["step"] = int(step)
 
@@ -750,11 +869,7 @@ def OneWeirdTrick4CNN(tp: int, *, dp: int = 1, mesh=None) -> ShardingStrategy:
 
 def MegatronLM(tp: int, *, dp: int = 1, pp: int = 1, mesh=None,
                zero_stage: int = 0) -> ShardingStrategy:
-    """Megatron placement (reference simple.py:174); ``pp > 1`` waits for
-    the pipelines (ROADMAP queue 1 item 10 part 3)."""
-    if pp > 1:
-        raise NotImplementedError(
-            f"MegatronLM(pp={pp}): pipelines wait for ROADMAP queue 1 item "
-            f"10 part 3")
+    """Megatron placement incl. the pipeline axis (reference
+    simple.py:174): a model's ``Pipelined`` stack splits over ``pp``."""
     return ShardingStrategy(mesh=mesh, mesh_spec=MeshSpec(dp=dp, tp=tp, pp=pp),
                             rules=MEGATRON_RULES, zero_stage=zero_stage)
