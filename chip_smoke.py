@@ -269,8 +269,9 @@ where it happened; any failure exits non-zero:
    of the engine's pool taken at the live shape (aliased prefix tables,
    the verify step's 40 chained rows, imported tables; the tick with the
    longest rows), after the arm's launch counts were read;
-16. survival: GPT-2 small as phase 5 trains it (fp32, TF32 off, flash,
-   the streamed head with chunk 1024, AdamW, batch 8 x 1024), its
+16. survival: GPT-2 small as phase 5 trains it at ``CUT_LAYERS`` of its 12
+   layers (fp32, TF32 off, flash, the streamed head with chunk 1024,
+   AdamW, batch 8 x 1024), its
    checkpoints in a temporary directory removed at the end: (0) one
    step run twice from the same state and key, every parameter and
    optimizer slot bitwise equal (cuDNN's deterministic algorithms, then
@@ -323,7 +324,7 @@ where it happened; any failure exits non-zero:
    arm, ``embed_hbm`` equal to the resident rows x dim x 4 after each
    stage;
 18. planning, offload and interchange: (a) GPT-2 small (phase 5's
-   settings) at 8 x 1024's sequence with microbatches 8 and 16 under
+   settings, ``CUT_LAYERS`` layers) at 8 x 1024's sequence with microbatches 8 and 16 under
    the remat policies none, full, dots_saveable, dots_no_batch and
    offload_dots: one real AdamW step of each candidate with its
    ``torch.cuda.max_memory_allocated`` growth, a budget below ``none`` at
@@ -410,10 +411,31 @@ where it happened; any failure exits non-zero:
    step-0 gradients bitwise the local pp=2 arm's, the hops' calls, bytes
    and ms; then the flash pair at a microbatch (B=1, H=12 and 6) and the
    CE pair at N=1023 and on (b)'s vocabulary shard timed;
-22. a ``kernels`` JSON line (the one-kv-block flash pair once for each
+22. sequence parallelism: GPT-2 small at phase 5's settings through
+   ``Trainer(strategy=ShardingStrategy(rules=MEGATRON_RULES,
+   batch_axes="dp"))`` on a local dp=2 sp=2 tp=2 mesh (8 ranks on the
+   card, run in turn): (a) ``__graft_entry__.py``'s config G, the flash
+   ring with the heads over tp (``head_axis="tp"``): the step-0 loss
+   (1e-5) and every gradient (1e-3 of its max) against the unsharded
+   flash path, each sp rank's gradients bitwise its group's (none summed
+   over sp), a control with the two sp chunks' causal offsets swapped
+   that must leave those limits, 3 steps within ``ST_TOL`` of phase 5's
+   losses, 144 block forwards and backwards (4 groups x 3 visits x 12
+   layers) and 8 CE forwards and backwards a step, each rank's
+   parameter bytes and the collectives a step; (b) the blockwise core
+   and (c) Ulysses (96 flash forwards and backwards a step) on the same
+   mesh, step 0 and one step; (d) ``GPT(attn_fn=ring_attn_fn(mesh))`` on
+   the reference's ``MeshSpec(sp=4, dp=2)`` without a strategy, loss and
+   gradients; (e) sp=2 across two processes of this script over gloo
+   (``--sp-worker``), the ring and then Ulysses, 4 x 1024, losses and
+   step-0 gradients against a local sp=2 run, the hops' calls, bytes and
+   ms; then the block pair at a rank's chunk, the flash pair at
+   Ulysses' rank shape (B=4, H=3) and the CE pair at a rank's
+   vocabulary shard timed;
+23. a ``kernels`` JSON line (the one-kv-block flash pair once for each
    path that runs it: phase 8 at seq 512, phase 10's flash arm, phase
-   11's ViT; the flash and CE pairs at phase 20's rank shapes and phase
-   21's microbatch and shard shapes), then the last line
+   11's ViT; the flash and CE pairs at phase 20's rank shapes, phase
+   21's microbatch and shard shapes and phase 22's), then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Phase 3 also holds the fused residual + dropout + LayerNorm kernels
@@ -425,7 +447,7 @@ the ring's block backward fed the block's own lse, a control that must
 fail its check, and the plain versions of the CE forward fed h and W,
 and of the flash forward fed q, k and v, rounded to TF32: controls that
 must fail the fp32 limits (a kernel that ran one-pass TF32 products
-would).  Phase 22 prints each flash kernel's time beside the prediction
+would).  Phase 23 prints each flash kernel's time beside the prediction
 made before its tensor-core redesign first ran, and likewise paged
 decode's, the fused-LN backward's and LM-head sampling's beside their
 predictions and their times before their redesign, and paged decode's
@@ -460,12 +482,18 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 # bounds of the kernel table up to its restatement (PERF.md).
 PEAK_OPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 FLUSH_BYTES = 256 << 20         # larger than the 50 MB L2
+# GPT-2 small's layers in phases 16 and 18 (full width): the whole
+# script must end within its time limit (PERF.md section 4 lists the cuts)
+CUT_LAYERS = 6
 SERVE_SLOTS, SERVE_BUDGET = 8, 64   # phase 4: slots, new tokens a request
+
+
+_START = time.monotonic()
 
 
 def phase(name):
     torch.cuda.synchronize()
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.monotonic() - _START:.1f} s)", flush=True)
 
 
 def time_ms(fn, flush, reps=30, warmup=3):
@@ -1033,8 +1061,9 @@ def check_flash_block(fl, flush, dtype, gen, shape=(8, 12, 1024, 64), sp=4):
                      zip(("dQ", "dK", "dV"), grads, pgrads)})
         ctrl = max(rel_err(a, b) for a, b in zip(local, pgrads))
         same = all(torch.equal(a, b) for a, b in zip(grads, again))
-        print(f"flash_block {dtype} {case} (q chunk 3 of 4, kv chunk "
-              f"{kv // c}, causal {mask}): relative errors "
+        print(f"flash_block {dtype} {case} (q chunk {sp - 1} of {sp}, kv "
+              f"chunk {kv // c}, causal {mask}, {tuple(qc.shape)}): relative "
+              f"errors "
               + " ".join(f"{n} {e:.3e}" for n, e in errs.items())
               + f"; tol O {o_tol:g}{o_how}, LSE 2e-5, grads {bwd_tol:g} (as "
               f"the flash check); backward bitwise repeatable: {same}; "
@@ -1087,26 +1116,28 @@ def check_flash_block(fl, flush, dtype, gen, shape=(8, 12, 1024, 64), sp=4):
 RING_VISITS = {"diagonal": 4, "past": 6}
 
 
-def ring_mix(rows, which):
+def ring_mix(rows, which, visits=None, timed=None):
     """One summary row for a block kernel: each number the per-launch mean
-    over one causal sp=4 layer's visits (4 diagonal, 6 past)."""
-    n = sum(RING_VISITS.values())
-    parts = {case: rows[case][which] for case in RING_VISITS}
+    over one causal ring layer's visits (by default sp=4's: 4 diagonal,
+    6 past)."""
+    visits = visits or RING_VISITS
+    n = sum(visits.values())
+    parts = {case: rows[case][which] for case in visits}
 
     def mean(key):
-        vals = [parts[c][key] for c in RING_VISITS]
+        vals = [parts[c][key] for c in visits]
         if any(x is None for x in vals):
             return None
-        return sum(RING_VISITS[c] * parts[c][key] for c in RING_VISITS) / n
+        return sum(visits[c] * parts[c][key] for c in visits) / n
 
     return {"max_abs_err": max(p["max_abs_err"] for p in parts.values()),
             "ms": mean("ms"), "plain_ms": mean("plain_ms"),
             "bound_ms": mean("bound_ms"),
             "bound_by": parts["past"]["bound_by"],
             "library_ms": mean("library_ms"),
-            "timed": "mean per launch of one causal sp=4 layer: 4 diagonal "
-                     "(causal) + 6 past (unmasked) visits at (8, 12, 256, "
-                     "64)"}
+            "timed": timed or "mean per launch of one causal sp=4 layer: 4 "
+                     "diagonal (causal) + 6 past (unmasked) visits at (8, "
+                     "12, 256, 64)"}
 
 
 # Gradient tolerance of the CE check, relative to each gradient's own
@@ -6649,8 +6680,8 @@ def surv_partial(trainer, ids, fl, ce, dev, card, tmp):
     g = fin["gang"]
     on_dev = dev == "cuda" or getattr(dev, "type", None) == "cuda"
     if on_dev:
-        n = fin["calls"]
-        assert fin["counts"] == (12 * n, 12 * n, n, n), (fin["counts"], n)
+        n, L = fin["calls"], trainer.model.config.num_layers
+        assert fin["counts"] == (L * n, L * n, n, n), (fin["counts"], n)
     diff = surv_diff(fin["snap"], again["snap"])
     same = g.losses_by_step == again["gang"].losses_by_step
     steps = sorted(g.losses_by_step)
@@ -9351,6 +9382,430 @@ def pipeline_phase(fl, ce, gpt_mod, card, dev="cuda", cfg=None):
     return out, time.monotonic() - t_start
 
 
+# --------------------------------------------------------------- phase 22
+# sequence parallelism beside data and tensor parallelism: GPT-2 small at
+# phase 5's settings on a local dp=2 sp=2 tp=2 mesh (__graft_entry__.py's
+# config G: ring attention with the heads sharded over tp), the
+# blockwise core and Ulysses on the same mesh, the reference's own sp=4
+# dp=2 mesh without a strategy, and sp=2 across two processes sharing
+# the card over gloo.
+
+SP_STEPS = 3    # ST_STEPS too: st_reference's losses
+SP_BATCH = 8
+SP_PROC_BATCH = 4      # (e): each process holds the whole 4 x 1024
+SP_TOL = 1e-5          # step-0 loss, relative
+SP_GRAD_TOL = 1e-3     # step-0 gradients, of each one's max (other sums)
+SP_PROC_TOL = 1e-6     # two processes vs the local sp = 2 arm, relative
+SP_MESH3 = dict(dp=2, sp=2, tp=2)
+# one causal sp=2 ring's visits: 2 diagonal, 1 past
+SP2_VISITS = {"diagonal": 2, "past": 1}
+
+
+def sp_counts(fl, ce):
+    return (fl.block_fwd_launch_count(), fl.block_bwd_launch_count(),
+            fl.fwd_launch_count(), fl.bwd_launch_count(),
+            ce.fwd_launch_count(), ce.bwd_launch_count())
+
+
+def sp_attn(kind, mesh):
+    from hetu_tpu_torch.parallel import ring_attn_fn, ulysses_attn_fn
+    return {"ring": lambda: ring_attn_fn(mesh, impl="flash", head_axis="tp"),
+            "blockwise": lambda: ring_attn_fn(mesh, impl="blockwise",
+                                              head_axis="tp"),
+            "ulysses": lambda: ulysses_attn_fn(mesh, head_axis="tp"),
+            "ring_plain": lambda: ring_attn_fn(mesh)}[kind]()
+
+
+def sp_model(cfg, dev, attn_fn):
+    from hetu_tpu_torch import GPT
+    return GPT(cfg, attn_fn=attn_fn,
+               generator=torch.Generator().manual_seed(0), device=dev)
+
+
+def sp_trainer(cfg, dev, mesh, kind, rules=None):
+    from hetu_tpu_torch import AdamWOptimizer, Trainer
+    from hetu_tpu_torch.parallel import ShardingStrategy
+    from hetu_tpu_torch.parallel.spec import DP_RULES, MEGATRON_RULES
+    return Trainer(sp_model(cfg, dev, sp_attn(kind, mesh)),
+                   AdamWOptimizer(3e-4, weight_decay=0.01), st_loss,
+                   strategy=ShardingStrategy(
+                       mesh=mesh, rules=rules or (
+                           MEGATRON_RULES if mesh.shape["tp"] > 1
+                           else DP_RULES), batch_axes="dp"))
+
+
+def sp_full_grads(sh):
+    """Every parameter's global gradient from the ranks' own: for each
+    dp piece the tp pieces of its sp = 0 ranks joined, then the mean over
+    dp; and whether every sp rank's gradients equal its group's sp = 0
+    rank's bitwise (none is summed over sp)."""
+    from hetu_tpu_torch.parallel.spec import gather_param
+    grads = [{n: p.grad for n, p in m.named_parameters()} for m in sh.models]
+    same = all(torch.equal(grads[i][n], grads[j][n])
+               for i, c in enumerate(sh.coords) if c["sp"] == 0
+               for j, d in enumerate(sh.coords)
+               if d["sp"] > 0 and d["dp"] == c["dp"] and d["tp"] == c["tp"]
+               for n in grads[i])
+    out = {}
+    for name, pl in sh.place.items():
+        total = None
+        for k in range(sh.dp):
+            idx = [i for i, c in enumerate(sh.coords)
+                   if c["dp"] == k and c["sp"] == 0]
+            g = gather_param([grads[i][name] for i in idx], pl.shape,
+                             pl.tp_spec, [sh.coords[i] for i in idx],
+                             sh.mesh.shape, pl.blocks)
+            total = g if total is None else total + g
+        out[name] = total / sh.dp
+    return out, same
+
+
+def sp_worst(grads, ref):
+    return max((((grads[k] - g).abs().max()
+                 / g.abs().max().clamp_min(1e-30)).item(), k)
+               for k, g in ref.items())
+
+
+def sp_step0(label, sh, loss, ref, card):
+    """Step 0's mean ``loss`` and every rank's gradients (left in ``.grad``
+    by the forward and backward) against the unsharded flash path's;
+    returns the readings."""
+    full, same = sp_full_grads(sh)
+    lrel = abs(loss - ref["loss"]) / abs(ref["loss"])
+    worst = sp_worst(full, ref["grads"])
+    print(f"{label} step 0: loss {loss:.6f} vs unsharded {ref['loss']:.6f},"
+          f" relative {lrel:.3e} (tol {SP_TOL:g}); worst gradient "
+          f"{worst[1]}: {worst[0]:.3e} of its max (tol {SP_GRAD_TOL:g}); "
+          f"each sp rank's gradients bitwise its group's sp=0 rank's (none "
+          f"summed over sp): {same}; {card}")
+    del full
+    return {"loss": loss, "rel": lrel, "grad_rel": worst[0], "same": same}
+
+
+def sp_steps(label, trainer, ids, ref, fl, ce, col, card, dev, steps):
+    """``steps`` AdamW steps from the reference's weights: the first one's
+    loss and gradients as step 0 (``sp_step0``), each step's launches
+    (block fwd, bwd, flash fwd, bwd, CE fwd, bwd), the losses against the
+    unsharded trainer's, the collectives a step, median step, tokens/s
+    and peak memory."""
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    for m in trainer._sharded.models:
+        for p in m.parameters():
+            p.grad = None
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    col.reset_counts()
+    losses, times, per_step, step0 = [], [], [], None
+    for _ in range(steps):
+        before = sp_counts(fl, ce)
+        sync()
+        t0 = time.monotonic()
+        losses.append(float(trainer.step(ids)["loss"]))
+        sync()
+        times.append(time.monotonic() - t0)
+        per_step.append(tuple(a - b for a, b in
+                              zip(sp_counts(fl, ce), before)))
+        if step0 is None:
+            step0 = sp_step0(label, trainer._sharded, losses[0], ref, card)
+    gap = max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"]))
+    kinds = {k: (v["calls"] // steps, v["bytes"] // steps)
+             for k, v in col.counts().items()}
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
+    print(f"{label}: losses {[round(x, 6) for x in losses]} vs unsharded "
+          f"{[round(x, 6) for x in ref['losses'][:steps]]}, largest "
+          f"relative gap {gap:.3e} (tol {ST_TOL:g}); launches a step "
+          f"(block fwd, bwd, flash fwd, bwd, CE fwd, bwd) {per_step}; "
+          f"collectives a step (calls, bytes) {kinds}; median step "
+          f"{med * 1e3:.3f} ms ({[round(t * 1e3, 3) for t in times]}; the "
+          f"ranks run in turn on one card, not a multi-card step), "
+          f"{ids.numel() / med:.1f} tokens/s, peak memory {peak} bytes "
+          f"({peak / 2**30:.3f} GiB); {card}")
+    return {"step0": step0, "losses": losses, "gap": gap,
+            "per_step": per_step, "kinds": kinds, "step_ms": med * 1e3,
+            "peak": peak}
+
+
+@contextlib.contextmanager
+def sp_offsets_swapped():
+    """The control of arm (a): the two sp chunks' causal offsets swapped
+    in the ring (chunk 0 masked as if it stood second, chunk 1 first)."""
+    import importlib
+    # the package's ``ring_attention`` function shadows the submodule
+    ra = importlib.import_module("hetu_tpu_torch.parallel.ring_attention")
+    orig = ra._visit
+    ra._visit = lambda r, src, causal: orig(1 - r, 1 - src, causal)
+    try:
+        yield
+    finally:
+        ra._visit = orig
+
+
+def sp_config_g(cfg, ids, ref, fl, ce, col, card, dev):
+    """(a) config G at full width: dp=2 sp=2 tp=2, the flash ring with
+    the heads over tp, MEGATRON_RULES."""
+    from hetu_tpu_torch.parallel import MeshSpec, make_mesh
+    mesh = make_mesh(MeshSpec(**SP_MESH3), device=dev)
+    trainer = sp_trainer(cfg, dev, mesh, "ring")
+    sh = trainer._sharded
+    row = {"ranks": len(sh.held),
+           "param_bytes": [sum(p.numel() * p.element_size()
+                               for p in m.parameters()) for m in sh.models]}
+    with sp_offsets_swapped():
+        out = sh.forward_backward(st_loss, ids, None)
+        ctrl = sp_step0("(a) control: the two sp chunks' causal offsets "
+                        "swapped", sh, float(sh.mean_loss(
+                            [o[0] for o in out])), ref, card)
+    del out
+    print(f"(a) control: loss {ctrl['rel']:.3e} relative, gradients "
+          f"{ctrl['grad_rel']:.3e} of their max (one must exceed its tol "
+          f"{SP_TOL:g} / {SP_GRAD_TOL:g}); {card}")
+    assert ctrl["rel"] > SP_TOL or ctrl["grad_rel"] > SP_GRAD_TOL, \
+        "the step-0 check cannot tell swapped causal offsets"
+    row["control"] = ctrl
+    row.update(sp_steps("(a) config G dp2 sp2 tp2, ring", trainer, ids,
+                        ref, fl, ce, col, card, dev, SP_STEPS))
+    print(f"(a) parameter bytes a rank {row['param_bytes']} (the tp halves "
+          f"of the blocks and of the vocabulary; the same on both sp ranks "
+          f"of a group); {card}")
+    del trainer, sh
+    return row
+
+
+def sp_one_step(label, kind, cfg, ids, ref, fl, ce, col, card, dev):
+    """(b), (c): the core ``kind`` on the dp2 sp2 tp2 mesh, one timed
+    step, its loss and gradients against the unsharded path's."""
+    from hetu_tpu_torch.parallel import MeshSpec, make_mesh
+    mesh = make_mesh(MeshSpec(**SP_MESH3), device=dev)
+    trainer = sp_trainer(cfg, dev, mesh, kind)
+    row = sp_steps(label, trainer, ids, ref, fl, ce, col, card, dev, 1)
+    del trainer
+    return row
+
+
+def sp_no_strategy(cfg, ids, ref, fl, ce, card, dev):
+    """(d) the reference's own MeshSpec(sp=4, dp=2) without a strategy:
+    ``GPT(attn_fn=ring_attn_fn(mesh))`` plays every rank (each dp half's
+    ring of four chunks); forward and gradients against the unsharded
+    model."""
+    from hetu_tpu_torch.parallel import MeshSpec, make_mesh, ring_attn_fn
+    model = sp_model(cfg, dev, ring_attn_fn(make_mesh(MeshSpec(sp=4, dp=2),
+                                                      device=dev)))
+    before = sp_counts(fl, ce)
+    loss = model.loss(ids)
+    loss.backward()
+    loss = float(loss.detach())
+    launches = tuple(a - b for a, b in zip(sp_counts(fl, ce), before))
+    lrel = abs(loss - ref["loss"]) / abs(ref["loss"])
+    worst = sp_worst({n: p.grad for n, p in model.named_parameters()},
+                     ref["grads"])
+    print(f"(d) MeshSpec(sp=4, dp=2), no strategy: loss {loss:.6f}, "
+          f"relative {lrel:.3e} (tol {SP_TOL:g}); worst gradient "
+          f"{worst[1]}: {worst[0]:.3e} of its max (tol {SP_GRAD_TOL:g}); "
+          f"launches (block fwd, bwd, flash fwd, bwd, CE fwd, bwd) "
+          f"{launches}; {card}")
+    del model
+    return {"rel": lrel, "grad_rel": worst[0], "launches": launches}
+
+
+def sp_digest(sh):
+    """Each held rank's gradients of the last forward and backward (dp = 1:
+    what the update got) as digests of their bytes, keyed by the rank's
+    sp coordinate."""
+    import hashlib
+    out = {}
+    for c, m in zip(sh.coords, sh.models):
+        for name, p in m.named_parameters():
+            out[f"{c['sp']}:{name}"] = hashlib.sha1(
+                p.grad.detach().float().cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+def sp_two_rank_run(cfg, dev, mesh, kind, ids):
+    """An sp = 2 run on ``mesh`` (local or over processes): ``SP_STEPS``
+    steps with each one's losses and times, the first step's gradients'
+    digests and the collectives a step."""
+    from hetu_tpu_torch.parallel import collectives as col
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    tr = sp_trainer(cfg, dev, mesh, "ring_plain" if kind == "ring"
+                    else kind)
+    losses, times, digest = [], [], None
+    col.reset_counts()
+    with col.timed():
+        for _ in range(SP_STEPS):
+            sync()
+            t0 = time.monotonic()
+            losses.append(float(tr.step(ids)["loss"]))
+            sync()
+            times.append(time.monotonic() - t0)
+            digest = digest or sp_digest(tr._sharded)
+    kinds = {k: {"calls": v["calls"] // SP_STEPS,
+                 "bytes": v["bytes"] // SP_STEPS,
+                 "ms": v["s"] * 1e3 / SP_STEPS,
+                 "composed": v["composed"] // SP_STEPS}
+             for k, v in col.counts().items()}
+    del tr
+    return {"losses": losses, "digest": digest,
+            "step_ms": [t * 1e3 for t in times], "kinds": kinds}
+
+
+def sp_worker(rank, nproc, coord, dev, cfg_kw):
+    """(e) one process of two: joins a gloo world, its tensors on ``dev``
+    (the shared card), sp = 2 over the process mesh (this process one sp
+    rank, the whole 4 x 1024 batch), the ring and then Ulysses; prints
+    one ``SEQPAR`` JSON line."""
+    import datetime
+
+    import torch.distributed as dist
+    from hetu_tpu_torch.models.gpt import GPTConfig
+    from hetu_tpu_torch.parallel import MeshSpec, make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://{coord}",
+                            world_size=nproc, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    cfg = GPTConfig(**cfg_kw)
+    mesh = make_mesh(MeshSpec(sp=nproc), device=dev, processes=True)
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (SP_PROC_BATCH, cfg.max_seq_len))).to(dev)
+    out = {kind: sp_two_rank_run(cfg, dev, mesh, kind, ids)
+           for kind in ("ring", "ulysses")}
+    print("SEQPAR " + json.dumps({"rank": rank, "runs": out}), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def sp_processes(cfg, card, dev):
+    """(e) sp = 2 across two processes of this script over gloo, against
+    the same runs on a local sp = 2 mesh: losses within ``SP_PROC_TOL``,
+    each rank's step-0 gradients bitwise, the hops' count, bytes and
+    ms."""
+    from hetu_tpu_torch.parallel import MeshSpec, make_mesh
+    t0 = time.monotonic()
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (SP_PROC_BATCH, cfg.max_seq_len))).to(dev)
+    mesh = make_mesh(MeshSpec(sp=2), device=dev)
+    local = {kind: sp_two_rank_run(cfg, dev, mesh, kind, ids)
+             for kind in ("ring", "ulysses")}
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    cfg_kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+              if f.name not in ("dtype", "remat")}
+    outs, rcs = st_spawn(
+        lambda r, port: ["--sp-worker", str(r), "2", f"127.0.0.1:{port}",
+                         dev, json.dumps(cfg_kw)], 2, 900)
+    rows = sorted(st_lines(outs, "SEQPAR"), key=lambda r: r["rank"])
+    assert rcs == [0, 0] and len(rows) == 2, (rcs, [o[-3000:] for o in outs])
+    out = {}
+    for kind in ("ring", "ulysses"):
+        a, b = (r["runs"][kind] for r in rows)
+        ref = local[kind]
+        gap = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                      ref["losses"]))
+        same = all(r["runs"][kind]["digest"][k] == ref["digest"][k]
+                   for r in rows for k in r["runs"][kind]["digest"])
+        hop = "ppermute" if kind == "ring" else "all_to_all"
+        print(f"(e) {kind}, two processes, gloo, tensors on the one card: "
+              f"losses {a['losses']} and {b['losses']}; local sp=2 "
+              f"{ref['losses']}: largest relative gap {gap:.3e} (tol "
+              f"{SP_PROC_TOL:g}); every step-0 gradient of both processes "
+              f"bitwise the local arm's: {same}; step ms "
+              f"{[round(t, 1) for t in a['step_ms']]} (local "
+              f"{[round(t, 1) for t in ref['step_ms']]}); a step: "
+              + "; ".join(f"{k} {v['calls']} calls ({v['composed']} "
+                          f"composed from all_reduce), {v['bytes']} bytes, "
+                          f"{v['ms']:.1f} ms" for k, v in
+                          sorted(a["kinds"].items()))
+              + f" (gloo through host memory on one card, not a link); "
+              f"{card}")
+        assert gap <= SP_PROC_TOL, (kind, gap)
+        # the losses alone cannot tell a gradient counted sp times: step
+        # 0's loss precedes it and AdamW nearly ignores a common scale
+        assert same, (kind, "the step-0 gradients differ from the local "
+                            "sp=2 arm's")
+        assert a["losses"] == b["losses"], f"{kind}: the processes disagree"
+        assert a["kinds"].get(hop, {}).get("calls", 0) > 0, a["kinds"]
+        assert a["losses"][-1] < a["losses"][0], a["losses"]
+        out[kind] = {"proc": a, "local": ref, "gap": gap, "grads_same": same}
+    print(f"(e) in {time.monotonic() - t0:.1f} s; {card}")
+    return out
+
+
+def sp_phase(fl, ce, gpt_mod, card, train_losses, dev="cuda", cfg=None,
+             ce_rows=None):
+    """Phase 22: (a) config G at full width on a local dp2 sp2 tp2 mesh
+    with the control; (b) the blockwise core and (c) Ulysses there; (d)
+    the reference's sp=4 dp=2 mesh without a strategy; (e) sp=2 across
+    two processes over gloo; then this path's kernels at its shapes (the
+    CE pair's rows on a rank's vocabulary shard: ``ce_rows`` where an
+    earlier phase of the run timed that same shape, N=4092 on
+    V_r=25129).  Returns the rows the summary needs and the launches of
+    the arms."""
+    from hetu_tpu_torch.parallel import collectives as col
+    t_start = time.monotonic()
+    cfg = cfg or gpt_mod.gpt2_small(streamed_head_chunk=1024)
+    L = cfg.num_layers
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (SP_BATCH, cfg.max_seq_len))).to(dev)
+    ref = st_reference(cfg, ids, dev, train_losses)
+    rows = {"a": sp_config_g(cfg, ids, ref, fl, ce, col, card, dev)}
+    a_end = sp_counts(fl, ce)
+    rows["b"] = sp_one_step("(b) dp2 sp2 tp2, blockwise ring", "blockwise",
+                            cfg, ids, ref, fl, ce, col, card, dev)
+    b_end = sp_counts(fl, ce)
+    rows["c"] = sp_one_step("(c) dp2 sp2 tp2, Ulysses", "ulysses", cfg, ids,
+                            ref, fl, ce, col, card, dev)
+    c_end = sp_counts(fl, ce)
+    rows["d"] = sp_no_strategy(cfg, ids, ref, fl, ce, card, dev)
+    d_end = sp_counts(fl, ce)
+    del ref
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    for arm in ("a", "b", "c"):
+        r = rows[arm]["step0"]
+        assert r["rel"] <= SP_TOL and r["grad_rel"] <= SP_GRAD_TOL, (arm, r)
+        assert r["same"], f"{arm}: an sp rank's gradients differ"
+        assert rows[arm]["gap"] <= ST_TOL, (arm, rows[arm]["gap"])
+    assert rows["a"]["losses"][-1] < rows["a"]["losses"][0], rows["a"]
+    assert rows["d"]["rel"] <= SP_TOL and rows["d"]["grad_rel"] <= \
+        SP_GRAD_TOL, rows["d"]
+    if dev == "cuda":
+        # 4 (dp, tp) groups x 3 visits x L layers of the ring; 8 ranks x L
+        # flash calls for Ulysses; every rank runs the head
+        ring, uly = (12 * L, 12 * L, 0, 0, 8, 8), (0, 0, 8 * L, 8 * L, 8, 8)
+        assert all(s == ring for s in rows["a"]["per_step"]), rows["a"]
+        assert all(s == (0, 0, 0, 0, 8, 8) for s in rows["b"]["per_step"])
+        assert all(s == uly for s in rows["c"]["per_step"]), rows["c"]
+        assert rows["d"]["launches"][:4] == (20 * L, 20 * L, 0, 0), rows["d"]
+    rows["proc"] = sp_processes(cfg, card, dev)
+    # (a)'s launches are its 3 steps' (the control's run is left out)
+    launches = {"a": tuple(map(sum, zip(*rows["a"]["per_step"]))),
+                "bcd": tuple(x - y for x, y in zip(d_end, a_end)),
+                "c": tuple(x - y for x, y in zip(c_end, b_end))}
+    print(f"phase 22 launches (block fwd, bwd, flash fwd, bwd, CE fwd, bwd):"
+          f" (a) {launches['a']}, (b)-(d) {launches['bcd']}, of which (c) "
+          f"{launches['c']}")
+    out = {"arms": rows, "launches": launches}
+    if dev == "cuda":
+        gen = torch.Generator().manual_seed(22)
+        flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+        out["block"] = check_flash_block(
+            fl, flush, torch.float32, gen,
+            shape=(SP_BATCH // 2, cfg.num_heads // 2, cfg.max_seq_len,
+                   cfg.hidden_size // cfg.num_heads), sp=2)
+        out["flash"] = check_flash(fl, flush, torch.float32,
+                                   cfg.max_seq_len, gen, timed=True,
+                                   B=SP_BATCH // 2, H=cfg.num_heads // 4)
+        out["ce"] = ce_rows or st_shard_ce(
+            ce, flush, gen, card, N=SP_BATCH // 2 * (cfg.max_seq_len - 1))
+        del flush
+        torch.cuda.empty_cache()
+    return out, time.monotonic() - t_start
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--ps-dp-worker"]:
         # phase 14 (c)'s worker processes: rank, port, device, batch
@@ -9375,6 +9830,14 @@ def main() -> int:
             return 2
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return pp_worker(int(rank), int(n), coord, dev, json.loads(cfg_kw))
+    if sys.argv[1:2] == ["--sp-worker"]:
+        # phase 22 (e)'s two processes: rank, world, coordinator, device,
+        # the GPT config
+        rank, n, coord, dev, cfg_kw = sys.argv[2:7]
+        if dev == "cuda" and not torch.cuda.is_available():
+            return 2
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return sp_worker(int(rank), int(n), coord, dev, json.loads(cfg_kw))
     if sys.argv[1:2] in (["--nccl-world"], ["--nccl-pair"]):
         if not torch.cuda.is_available():
             return 2
@@ -9655,7 +10118,10 @@ def main() -> int:
     phase("16 survival: GPT-2 small through faults (ResilientTrainer, "
           "the elastic gang, partial reduce, the runtime controller) and "
           "ResNet-18's anomaly policy")
-    surv, surv_s = survival_phase(fl, ce, smi)
+    # phases 16 and 18 run GPT-2 small at full width and CUT_LAYERS of
+    # its 12 layers (PERF.md section 4: the script's time limit)
+    cut = gpt2_small(streamed_head_chunk=1024, num_layers=CUT_LAYERS)
+    surv, surv_s = survival_phase(fl, ce, smi, cfg=cut)
     r, p = surv["resilient"], surv["partial"]
     print(f"phase 16 in {surv_s:.1f} s; repeatability needed "
           f"{surv['repeat']} (GPT-2), {surv['resnet']['repeat']} "
@@ -9681,7 +10147,7 @@ def main() -> int:
     phase("18 planning, offload and interchange: GPT-2 small's memory plan "
           "and offload_dots, BERT-base GLUE fine-tuning, GPT-2 small's ONNX "
           "round trip")
-    plan18, plan18_s = planning_phase(smi)
+    plan18, plan18_s = planning_phase(smi, cfg=cut)
     pa, po = plan18["plan"], plan18["offload"]["arms"]
     print(f"phase 18 in {plan18_s:.1f} s; plan {pa['plan'].policy} @ "
           f"{pa['plan'].microbatch} under {pa['budget']} bytes (peak "
@@ -9726,7 +10192,25 @@ def main() -> int:
     pl = pp["launches"]
     mb = tuple(a + c for a, c in zip(pl["a"], pl["cde"]))
 
-    phase("22 summary")
+    phase("22 sequence parallelism: GPT-2 small on a local dp=2 sp=2 tp=2 "
+          "mesh with the heads over tp (config G), the blockwise core and "
+          "Ulysses there, the sp=4 dp=2 mesh without a strategy, sp=2 "
+          "across two processes")
+    sq, sq_s = sp_phase(fl, ce, gpt_mod, smi, flash_losses, ce_rows=st["ce"])
+    sa = sq["arms"]
+    print(f"phase 22 in {sq_s:.1f} s; median step ms config G "
+          f"{sa['a']['step_ms']:.1f}, blockwise {sa['b']['step_ms']:.1f}, "
+          f"Ulysses {sa['c']['step_ms']:.1f}; two processes ring "
+          f"{statistics.median(sa['proc']['ring']['proc']['step_ms']):.1f}"
+          f", Ulysses "
+          f"{statistics.median(sa['proc']['ulysses']['proc']['step_ms']):.1f}"
+          f" ms a step; {smi}")
+    sl = sq["launches"]
+    sp_timed = ("mean per launch of one causal sp=2 layer: 2 diagonal "
+                "(causal) + 1 past (unmasked) visits at a dp2 sp2 tp2 rank's "
+                "chunk (4, 6, 512, 64)")
+
+    phase("23 summary")
     f32, bf16 = torch.float32, torch.bfloat16
     kernels = [
         dict(name="paged_decode_attention", route="cuda",
@@ -9871,6 +10355,40 @@ def main() -> int:
              replaces="hetu_tpu/ops/pallas/lm_head.py:202",
              path="dp=2 tp=2 pp=2, a rank's N=4092 on V_r=25129 (phase 21 "
                   "(b))", launches=pl["b"][3], **pp["ce_shard"][1]),
+        dict(name="flash_block_fwd_sp_rank", route="cuda",
+             source="hetu_tpu_torch/csrc/flash_attn.cu",
+             replaces="hetu_tpu/ops/pallas/flash.py:608",
+             path="config G: dp=2 sp=2 tp=2 ring with the heads over tp "
+                  "(phase 22 (a))", launches=sl["a"][0],
+             **ring_mix(sq["block"], 0, SP2_VISITS, sp_timed)),
+        dict(name="flash_block_bwd_sp_rank", route="cuda",
+             source="hetu_tpu_torch/csrc/flash_attn.cu",
+             replaces="hetu_tpu/ops/pallas/flash.py:619",
+             path="config G: dp=2 sp=2 tp=2 ring with the heads over tp "
+                  "(phase 22 (a))", launches=sl["a"][1],
+             **ring_mix(sq["block"], 1, SP2_VISITS, sp_timed)),
+        dict(name="flash_fwd_ulysses_rank", route="cuda",
+             source="hetu_tpu_torch/csrc/flash_attn.cu",
+             replaces="hetu_tpu/ops/pallas/flash.py:191",
+             path="Ulysses on dp=2 sp=2 tp=2, a rank's B=4 H=3 S=1024 "
+                  "(phase 22 (c))", launches=sl["c"][2], **sq["flash"][0]),
+        dict(name="flash_bwd_ulysses_rank", route="cuda",
+             source="hetu_tpu_torch/csrc/flash_attn.cu",
+             replaces="hetu_tpu/ops/pallas/flash.py:462",
+             path="Ulysses on dp=2 sp=2 tp=2, a rank's B=4 H=3 S=1024 "
+                  "(phase 22 (c))", launches=sl["c"][3], **sq["flash"][1]),
+        dict(name="lm_head_ce_fwd_sp_vocab_shard", route="cuda",
+             source="hetu_tpu_torch/csrc/lm_head_ce.cu",
+             replaces="hetu_tpu/ops/pallas/lm_head.py:177",
+             path="dp=2 sp=2 tp=2, a rank's whole 4 x 1024 piece, N=4092 on "
+                  "V_r=25129 (phase 22 (a))", launches=sl["a"][4],
+             **sq["ce"][0]),
+        dict(name="lm_head_ce_bwd_sp_vocab_shard", route="cuda",
+             source="hetu_tpu_torch/csrc/lm_head_ce.cu",
+             replaces="hetu_tpu/ops/pallas/lm_head.py:202",
+             path="dp=2 sp=2 tp=2, a rank's whole 4 x 1024 piece, N=4092 on "
+                  "V_r=25129 (phase 22 (a))", launches=sl["a"][5],
+             **sq["ce"][1]),
     ]
     print_predictions({
         ("flash_fwd", f32): fl_rows[f32][0],

@@ -60,8 +60,9 @@ exists.
 The CPU runs only when a caller asks for it with ``device="cpu"``.
 """
 
-from hetu_tpu_torch.core.device import resolve_device
-from hetu_tpu_torch.core.rng import next_key, set_random_seed
+from hetu_tpu_torch.core import (Policy, get_seed_status, logical_axes,
+                                 next_key, param_count, reset_seed_seqnum,
+                                 resolve_device, set_random_seed)
 from hetu_tpu_torch.data import Dataloader, cifar10, mnist, synthetic_lm
 from hetu_tpu_torch.exec.executor import Executor, Trainer
 from hetu_tpu_torch.models.gnn import GCN, normalize_adjacency
@@ -94,6 +95,8 @@ __all__ = ["resolve_device", "GPT", "GPTConfig", "gpt2_small",
            "mnist", "synthetic_lm", "T5Config", "T5ForConditionalGeneration",
            "t5_base", "RNNClassifier", "GCN", "normalize_adjacency",
            "flash_attn_fn", "BertConfig", "BertForPreTraining", "bert_base",
-           "bert_large", "set_random_seed", "next_key", "MeshSpec",
+           "bert_large", "set_random_seed", "next_key", "get_seed_status",
+           "reset_seed_seqnum", "logical_axes", "param_count", "Policy",
+           "MeshSpec",
            "make_mesh", "ring_attn_fn", "ulysses_attn_fn",
            "ShardingStrategy", "DataParallel", "ZeRO", "MegatronTP"]

@@ -59,7 +59,10 @@ class HetuTimer:
         self.sync = sync
 
     @contextlib.contextmanager
-    def __call__(self, name: str):
+    def __call__(self, name: str, result: Any = None):
+        """A section named ``name``; ``result`` is accepted for the
+        reference's signature (which ignores it too): the section's
+        synchronize covers any result."""
         t0 = time.perf_counter()
         try:
             yield self

@@ -872,15 +872,19 @@ def _build(ep, name: str, rename: Callable[[str], str]) -> pb.ModelProto:
     return pb.ModelProto(graph=graph)
 
 
-def export_fn(fn: Callable, *example_args, name: str = "hetu_tpu"
-              ) -> pb.ModelProto:
+def export_fn(fn: Callable, *example_args, name: str = "hetu_tpu",
+              const_names: dict | None = None) -> pb.ModelProto:
     """Trace ``fn(*example_args)`` and convert the graph to an ONNX model.
 
     Tensors ``fn`` closes over become initializers (a module it closes
     over: pass it to :func:`export_module` to keep the parameters'
-    names); the flattened tensor arguments become graph inputs."""
+    names); the flattened tensor arguments become graph inputs.
+    ``const_names`` optionally maps ``id(tensor)`` of a closure tensor to
+    the initializer name to use, as the reference's does."""
     ep = _trace(fn, example_args)
-    return _build(ep, name, lambda n: n)
+    names = {k: const_names[id(v)] for k, v in ep.constants.items()
+             if const_names and id(v) in const_names}
+    return _build(ep, name, lambda n: names.get(n, n))
 
 
 def export_module(model: torch.nn.Module, *example_inputs,

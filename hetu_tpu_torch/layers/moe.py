@@ -39,7 +39,7 @@ the experts keep the JAX ``(E, d, h)`` / ``(E, h, d)`` layout.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -414,9 +414,9 @@ class BalanceGate(_Gate):
 
 class ExpertMLP(nn.Module):
     """Stacked expert FFNs, ``w1 [E,d,h]``, ``b1 [E,h]``, ``w2 [E,h,d]``,
-    ``b2 [E,d]`` with the tanh gelu between, applied with batched matrix
-    products over the expert dim (the JAX package ``vmap``s its XLA
-    dots)."""
+    ``b2 [E,d]`` with ``activation`` between (any callable; the tanh gelu
+    by default), applied with batched matrix products over the expert
+    dim (the JAX package ``vmap``s its XLA dots)."""
 
     _logical_axes = {"w1": ("experts", "embed", "mlp"),
                      "b1": ("experts", "mlp"),
@@ -424,7 +424,8 @@ class ExpertMLP(nn.Module):
                      "b2": ("experts", "embed")}
 
     def __init__(self, num_experts: int, dim: int, hidden: int, *,
-                 generator=None, dtype=torch.float32, device=None):
+                 activation: Callable = gelu, generator=None,
+                 dtype=torch.float32, device=None):
         super().__init__()
         device = resolve_device(device)
         init = normal(stddev=0.02)
@@ -435,6 +436,7 @@ class ExpertMLP(nn.Module):
         self.w2 = p(init(generator, (num_experts, hidden, dim), dtype,
                          device))
         self.b2 = p(zeros(None, (num_experts, dim), dtype, device))
+        self.activation = activation
         self.num_experts = num_experts
 
     def forward(self, x, first: int = 0):
@@ -442,8 +444,8 @@ class ExpertMLP(nn.Module):
         (all of them by default) -> the same shape."""
         sl = slice(first, first + x.shape[0])
         dt = x.dtype
-        h = gelu(torch.bmm(x, self.w1[sl].to(dt))
-                 + self.b1[sl].to(dt)[:, None, :])
+        h = self.activation(torch.bmm(x, self.w1[sl].to(dt))
+                            + self.b1[sl].to(dt)[:, None, :])
         return (torch.bmm(h, self.w2[sl].to(dt))
                 + self.b2[sl].to(dt)[:, None, :])
 

@@ -60,10 +60,11 @@ class MoELMConfig:
 
 class MoEBlock(nn.Module):
     """Pre-LN causal attention + MoE FFN; returns ``(x, aux)`` or, with
-    stats, ``(x, (aux, stats))``."""
+    stats, ``(x, (aux, stats))``.  ``use_moe=False`` is the dense variant
+    of every-other-layer MoE: no FFN, an aux of 0 and no stats."""
 
     def __init__(self, cfg: MoELMConfig, *, mesh=None, attn_fn=None,
-                 generator=None, device=None):
+                 use_moe: bool = True, generator=None, device=None):
         super().__init__()
         d = cfg.hidden_size
         dtype = as_dtype(cfg.dtype)
@@ -75,11 +76,15 @@ class MoEBlock(nn.Module):
         self.moe = moe_transformer_mlp(
             d, cfg.mlp_ratio * d, cfg.num_experts, k=cfg.top_k,
             capacity_factor=cfg.capacity_factor, mesh=mesh,
-            generator=generator, dtype=dtype, device=device)
+            generator=generator, dtype=dtype, device=device) \
+            if use_moe else None
 
     def forward(self, x, *, training: bool = False,
                 with_stats: bool = False):
         x = x + self.attn(self.ln1(x))
+        if self.moe is None:
+            zero = torch.zeros((), dtype=torch.float32, device=x.device)
+            return x, ((zero, None) if with_stats else zero)
         y, aux = self.moe(self.ln2(x), training=training,
                           with_stats=with_stats)
         return x + y, aux
@@ -122,7 +127,7 @@ class MoELM(nn.Module):
         x = self.wte(input_ids) + self.wpe(
             torch.arange(s, device=input_ids.device))
         aux_total = 0.0
-        stats_acc = None
+        stats_acc, n_moe = None, 0
         step = maybe_remat(
             lambda b, xx: b(xx, training=training, with_stats=with_stats),
             self.config.remat)
@@ -130,14 +135,16 @@ class MoELM(nn.Module):
             x, aux = step(blk, x)
             if with_stats:
                 aux, stats = aux
-                stats_acc = stats if stats_acc is None else {
-                    k: stats_acc[k] + v for k, v in stats.items()}
+                if stats is not None:
+                    n_moe += 1
+                    stats_acc = stats if stats_acc is None else {
+                        k: stats_acc[k] + v for k, v in stats.items()}
             aux_total = aux_total + aux
         logits = self._head(self.ln_f(x))
         if with_stats:
-            n = len(self.blocks)
             return logits, (aux_total,
-                            {k: v / n for k, v in stats_acc.items()})
+                            {k: v / n_moe for k, v in stats_acc.items()}
+                            if stats_acc else {})
         return logits, aux_total
 
     def _head(self, x):

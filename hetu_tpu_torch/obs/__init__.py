@@ -7,7 +7,9 @@ fleet plane (``obs.fleet``), request timelines (``obs.reqtrace``), SLO
 grading and burn rates (``obs.slo``), capture counts, ``watch`` and the
 compile-storm detector (``obs.compile``), the HBM ledger
 (``obs.memledger``), the calibration plane (``obs.calibration``) and
-the scrape endpoint's route table (``obs.server``)."""
+the scrape endpoint's route table (``obs.server``).  The package exports
+what the reference's ``hetu_tpu.obs`` exports but ``InstrumentedJit`` and
+``instrument``, which wrap ``jax.jit`` (``watch`` takes their place)."""
 
 from hetu_tpu_torch.obs import (calibration, compile, divergence, fleet,
                                 goodput, journal, memledger, numerics,
@@ -28,8 +30,22 @@ from hetu_tpu_torch.obs.fleet import (FleetAggregator, SnapshotPublisher,
 from hetu_tpu_torch.obs.goodput import GoodputMeter
 from hetu_tpu_torch.obs.numerics import (FlightRecorder, first_nonfinite,
                                          install_recorder, loss_provenance)
-from hetu_tpu_torch.obs.registry import (disable, enable, enabled,
-                                         get_registry)
+from hetu_tpu_torch.obs.journal import (EventJournal, get_journal, record,
+                                        set_journal, use)
+from hetu_tpu_torch.obs.numerics import (fingerprint, group_stats,
+                                         host_fingerprint,
+                                         host_fingerprint_ints,
+                                         host_group_stats, tree_fingerprints)
+from hetu_tpu_torch.obs.registry import (DEFAULT_BUCKETS, Counter, Gauge,
+                                         Histogram, MetricsRegistry, disable,
+                                         enable, enabled, get_registry)
+from hetu_tpu_torch.obs.reqtrace import ReqTraceBuffer, RequestTimeline
+from hetu_tpu_torch.obs.server import (RoutedHTTPServer, Routes,
+                                       TelemetryServer, serve,
+                                       telemetry_routes)
+from hetu_tpu_torch.obs.slo import SLOEngine, SLOTargets
+from hetu_tpu_torch.obs.tracing import (Span, Tracer, current_span,
+                                        get_tracer, span)
 
 __all__ = ["registry", "journal", "tracing", "numerics", "reqtrace", "slo",
            "compile", "server", "divergence", "fleet", "goodput",
@@ -43,4 +59,12 @@ __all__ = ["registry", "journal", "tracing", "numerics", "reqtrace", "slo",
            "DivergenceDetector", "FingerprintBoard", "compare_fleet",
            "FleetAggregator", "SnapshotPublisher", "fleet_routes",
            "serve_fleet", "GoodputMeter", "FlightRecorder",
-           "first_nonfinite", "install_recorder", "loss_provenance"]
+           "first_nonfinite", "install_recorder", "loss_provenance",
+           "MetricsRegistry", "Counter", "Gauge", "Histogram",
+           "DEFAULT_BUCKETS", "Tracer", "Span", "get_tracer", "span",
+           "current_span", "EventJournal", "get_journal", "set_journal",
+           "use", "record", "TelemetryServer", "serve", "Routes",
+           "RoutedHTTPServer", "telemetry_routes", "RequestTimeline",
+           "ReqTraceBuffer", "SLOEngine", "SLOTargets", "fingerprint",
+           "group_stats", "tree_fingerprints", "host_fingerprint",
+           "host_fingerprint_ints", "host_group_stats"]

@@ -81,11 +81,14 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1)
 
 
-def conv2d(x, w, stride=1, padding="SAME", dilation=1, groups: int = 1):
+def conv2d(x, w, stride=1, padding="SAME", dilation=1, groups: int = 1,
+           precision=None):
     """2-D convolution, NHWC activations, HWIO weights, as the JAX
     package's ``conv2d``; the NHWC result.  A symmetric padding goes to
     ``F.conv2d``, an uneven one is padded explicitly
-    (``F.conv2d(padding="same")`` refuses a stride above 1)."""
+    (``F.conv2d(padding="same")`` refuses a stride above 1).
+    ``precision`` is accepted for the reference's signature and has no
+    effect, as in :func:`~hetu_tpu_torch.ops.math.matmul`."""
     stride, dilation = _pair(stride), _pair(dilation)
     (pt, pb), (pl, pr) = _pads(padding, x.shape[1:3], w.shape[:2], stride,
                                dilation)
@@ -111,10 +114,11 @@ def _transpose_pads(k: int, s: int, padding: str) -> tuple:
     return lo, total - lo
 
 
-def conv2d_transpose(x, w, stride=1, padding="SAME"):
+def conv2d_transpose(x, w, stride=1, padding="SAME", precision=None):
     """``lax.conv_transpose`` with NHWC / HWIO and an unflipped kernel:
     the input dilated by ``stride`` (zeros between its pixels), padded,
-    and convolved at stride 1."""
+    and convolved at stride 1.  ``precision`` has no effect, as in
+    :func:`conv2d`."""
     stride = _pair(stride)
     if isinstance(padding, int):
         pads = ((padding, padding), (padding, padding))

@@ -7,8 +7,13 @@ pipelines over ``pp``, run by the ``Trainer`` through ``strategy=`` —
 the pipelines themselves (GPipe, ``pipeline``; synchronous, interleaved
 and asynchronous 1F1B with HetPipe's dp mean, ``pipedream``;
 heterogeneous dp degrees per stage, ``hetero``), the sequence-parallel
-cores (ring attention and Ulysses) and the auto-parallel search
-(``parallel.autoparallel``)."""
+cores (ring attention and Ulysses, over ``sp`` alone or beside ``dp``
+and ``tp`` with the heads kept tp-sharded, on both meshes) and the
+auto-parallel search (``parallel.autoparallel``).  Still refused, each
+naming its ROADMAP item: ``ep`` beside another axis or across
+processes (queue 1 item 10 part 5), ``sp`` beside ``pp`` or under a
+remat policy in a strategy (part 12), a tp-sharded convolution (part
+7)."""
 
 from hetu_tpu_torch.parallel.mesh import (DEFAULT_AXES, LocalMesh, MeshSpec,
                                           ProcessMesh, local_mesh_size,

@@ -26,10 +26,17 @@ gradients on both meshes, as ``torch.autograd.Function``\\ s:
 own upstream gradient), :func:`copy_to_group` (identity forward, sum of
 the group's gradients backward) and :func:`gather_from_group` (tiled
 gather forward, each rank's slice of its own gradient backward).
+:func:`scatter_to_group` is the gather's transpose (each rank's slice of
+its own tensor forward, the tiled gather of the group's gradients
+backward): the two bound sequence-parallel attention, whose ranks hold
+the whole sequence outside it (``parallel.ring_attention``).
 :func:`ppermute` carries its gradient across processes too: its
 backward is the permutation's inverse, as ``lax.ppermute``'s transpose
-is (the pipelines' activation hops, ``parallel.pipeline``).  The others
-carry no gradient across processes.
+is (the pipelines' activation hops, ``parallel.pipeline``, and the
+ring's K/V hops), and so does :func:`all_to_all`: its backward is the
+transposed exchange (split and concatenated dimensions swapped), as
+``lax.all_to_all``'s is (Ulysses).  The others carry no gradient across
+processes.
 
 **Backends.**  Where the process group's backend lacks an op for the
 tensor's device (gloo with CUDA tensors takes ``all_reduce`` and
@@ -59,8 +66,8 @@ __all__ = [
     "all_reduce", "all_reduce_mean", "reduce_scatter", "all_gather",
     "all_to_all", "hierarchical_all_to_all", "broadcast", "ppermute",
     "send_next", "recv_prev", "axis_index", "axis_size", "pmean",
-    "copy_to_group", "gather_from_group", "counts", "reset_counts",
-    "timed",
+    "copy_to_group", "gather_from_group", "scatter_to_group", "counts",
+    "reset_counts", "timed",
 ]
 
 _COUNTS: dict = {}
@@ -229,6 +236,27 @@ class _LocalGather(torch.autograd.Function):
         return (None, None, *dxs)
 
 
+class _LocalScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, groups, dim, *xs):
+        ctx.groups, ctx.dim = groups, dim
+        outs = [None] * len(xs)
+        for g in groups:
+            for k, i in enumerate(g):
+                outs[i] = xs[i].chunk(len(g), dim)[k].clone()
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *dys):
+        _count("all_gather", dys)
+        dxs = [None] * len(dys)
+        for g in ctx.groups:
+            full = torch.cat([dys[i] for i in g], dim=ctx.dim)
+            for k, i in enumerate(g):
+                dxs[i] = full if k == 0 else full.clone()
+        return (None, None, *dxs)
+
+
 class _ProcSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis, mean):
@@ -266,6 +294,21 @@ class _ProcGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         return dy.narrow(ctx.dim, ctx.at * ctx.n, ctx.n), None, None, None
+
+
+class _ProcScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        _, ranks = mesh.group(axis)
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return x.chunk(len(ranks), dim)[ranks.index(mesh.rank)].clone()
+
+    @staticmethod
+    def backward(ctx, dy):
+        parts = _run("all_gather", ctx.mesh, dy,
+                     lambda: _dist_gather(dy, ctx.mesh, ctx.axis),
+                     composed=not _native(ctx.mesh, dy, "all_gather"))
+        return torch.cat(parts, dim=ctx.dim), None, None, None
 
 
 def all_reduce(shards: list, axis=None, *, mesh=None) -> list:
@@ -308,6 +351,19 @@ def gather_from_group(shards: list, axis=None, *, dim: int = -1,
     _count("all_gather", shards)
     return list(_LocalGather.apply(_groups(shards, axis, mesh), dim,
                                    *shards))
+
+
+def scatter_to_group(shards: list, axis=None, *, dim: int = -1,
+                     mesh=None) -> list:
+    """Rank ``i`` of each group keeps the ``i``-th of ``n`` equal pieces
+    of its own tensor along ``dim`` (the ranks hold the same values);
+    backward, the tiled gather of the group's gradients, so each rank
+    gets the whole gradient (:func:`gather_from_group`'s transpose)."""
+    dim = dim % shards[0].dim()
+    if _process(mesh):
+        return [_ProcScatter.apply(shards[0], mesh, axis, dim)]
+    return list(_LocalScatter.apply(_groups(shards, axis, mesh), dim,
+                                    *shards))
 
 
 # --------------------------------------------------------------------------
@@ -378,23 +434,8 @@ def all_to_all(shards: list, axis=None, *, split_dim: int,
     into one piece per rank of the group, and rank ``r`` concatenates
     the ``r``-th pieces along ``concat_dim`` in group order."""
     if _process(mesh):
-        x = shards[0]
-        _, ranks = mesh.group(axis)
-        n, at = len(ranks), ranks.index(mesh.rank)
-
-        def native():
-            import torch.distributed as dist
-            ins = [c.contiguous() for c in x.detach().chunk(n, split_dim)]
-            outs = [torch.empty_like(c) for c in ins]
-            dist.all_to_all(outs, ins, group=mesh.group(axis)[0])
-            return outs
-
-        composed = not _native(mesh, x, "all_to_all")
-        parts = _run("all_to_all", mesh, x, native if not composed else
-                     (lambda: [p.chunk(n, split_dim)[at]
-                               for p in _dist_gather(x, mesh, axis)]),
-                     composed)
-        return [torch.cat(parts, concat_dim)]
+        return [_ProcAllToAll.apply(shards[0], mesh, axis, split_dim,
+                                    concat_dim)]
     _count("all_to_all", shards)
     out = [None] * len(shards)
     for g in _groups(shards, axis, mesh):
@@ -402,6 +443,38 @@ def all_to_all(shards: list, axis=None, *, split_dim: int,
         for r, i in enumerate(g):
             out[i] = torch.cat([p[r] for p in pieces], dim=concat_dim)
     return out
+
+
+def _proc_all_to_all(x, mesh, axis, split_dim, concat_dim):
+    """This process's result of the tiled exchange over ``axis``."""
+    _, ranks = mesh.group(axis)
+    n, at = len(ranks), ranks.index(mesh.rank)
+
+    def native():
+        import torch.distributed as dist
+        ins = [c.contiguous() for c in x.detach().chunk(n, split_dim)]
+        outs = [torch.empty_like(c) for c in ins]
+        dist.all_to_all(outs, ins, group=mesh.group(axis)[0])
+        return outs
+
+    composed = not _native(mesh, x, "all_to_all")
+    parts = _run("all_to_all", mesh, x, native if not composed else
+                 (lambda: [p.chunk(n, split_dim)[at]
+                           for p in _dist_gather(x, mesh, axis)]),
+                 composed)
+    return torch.cat(parts, concat_dim)
+
+
+class _ProcAllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_dim, concat_dim):
+        ctx.args = (mesh, axis, concat_dim, split_dim)
+        return _proc_all_to_all(x, mesh, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (_proc_all_to_all(dy.contiguous(), *ctx.args), None, None,
+                None, None)
 
 
 def hierarchical_all_to_all(shards: list, outer_axis: str, inner_axis: str,

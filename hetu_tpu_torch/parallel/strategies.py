@@ -60,6 +60,17 @@ itself, each one counted (``parallel.collectives.counts``):
   mean), each part once.  A model without a stack under ``pp > 1`` is
   replicated over pp: the last stage's gradients alone reach it.
 
+* **Sequence parallelism** (``sp > 1``, beside ``dp`` and ``tp``).  The
+  ranks of one ``sp`` group get the same dp piece of the batch and hold
+  its whole sequence outside the attention; ``parallel.ring_attention``
+  cuts each rank's chunk on entry, rings over the group and gathers the
+  outputs (the reference's ``shard_map`` island), reaching the rank
+  through the handle that ``install`` binds to each rank's attention
+  (``attn_fn.for_rank``).  The chunk cut's backward gathers the chunks'
+  gradients, so every gradient is equal over ``sp`` and only the dp
+  mean (and, under pp, the pp sum) reduces it.  The island repeats the
+  work outside the attention ``sp`` times, once on each rank of a group.
+
 Under a strategy each rank draws dropout from the step's key as if it
 were alone, so with dropout the ranks' masks are not the slices of one
 global mask (the traces equal the unsharded ones at rate 0).  Refused,
@@ -68,8 +79,9 @@ or its slots are sharded (their norms would need a reduction across
 ranks), models with floating state buffers (BatchNorm statistics) over
 dp > 1, a pipeline stage under a remat policy with ``tp > 1`` on a local
 mesh (the recomputation in the backward would meet the other ranks
-outside their run) and ZeRO over the layers of a stack the rules leave
-unplaced.
+outside their run), a remat policy with ``sp > 1`` (the recomputed
+attention would run outside its rank) and ZeRO over the layers of a
+stack the rules leave unplaced.
 """
 
 from __future__ import annotations
@@ -240,6 +252,12 @@ class ShardedModel:
                 f"floating state buffers ({floating[:3]}...) over dp={dp}: "
                 f"each rank would keep its own statistics")
         remat = getattr(getattr(model, "config", None), "remat", "none")
+        if mesh.shape["sp"] > 1 and remat != "none":
+            raise NotImplementedError(
+                f"remat={remat!r} with sp={mesh.shape['sp']}: the "
+                f"recomputation in the backward would run the attention "
+                f"outside its rank; sequence parallelism under a remat "
+                f"policy waits for ROADMAP queue 1 item 10 part 12")
         if self.stage >= 3 and dp > 1 and remat != "none":
             raise NotImplementedError(
                 f"ZeRO stage 3 with remat={remat!r}: the recomputation "
@@ -352,6 +370,10 @@ class ShardedModel:
         for mod in model.modules():
             if isinstance(mod, Pipelined):
                 mod._pp_setup(self.handles[i], c, shape)
+            bind = getattr(getattr(mod, "attn_fn", None), "for_rank", None)
+            if bind is not None:
+                # sequence-parallel attention meets its rank's sp group
+                mod.attn_fn = bind(self.handles[i])
         stacked = {f"{p}.{q}" if p else q
                    for p, m in model.named_modules()
                    if isinstance(m, torch.nn.ModuleList)
@@ -573,7 +595,9 @@ class ShardedModel:
         ZeRO-sharded ones as this rank's slice of the mean (one
         ``reduce_scatter`` bucket).  Under stage 3 a ZeRO-sharded
         parameter's slice already has its part of the mean: the backward
-        of its gather reduce-scattered it."""
+        of its gather reduce-scattered it.  No gradient is partial over
+        ``sp`` (the attention's chunk cut gathers its gradients), so none
+        is reduced over it."""
         n = len(self.held)
         grads = []
         for m in self.models:

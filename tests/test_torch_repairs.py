@@ -9,12 +9,25 @@ promise, each held against the JAX package on the CPU:
   over a zero-length kept axis; every finite input keeps today's bits;
 - ``ResilientTrainer`` and ``ElasticGang`` switch on
   ``torch.backends.cudnn.deterministic`` for a model that holds a
-  convolution (cuDNN's default algorithms do not replay bitwise).
+  convolution (cuDNN's default algorithms do not replay bitwise);
+- the parameter names of every public function and method of the
+  reference that has a port of the same path and name are accepted by
+  the port (a walk with its skip list), each repaired parameter held
+  against the reference's value (``ExpertMLP(activation=)``,
+  ``MoEBlock(use_moe=False)``, ``conv2d(precision=)``,
+  ``HetuTimer(..., result=)``, ``export_fn(const_names=)``;
+  ``ring_attn_fn(remat=)`` in ``tests/test_torch_ring.py``);
+- every name a reference package exports (its ``__all__``, or its public
+  names where it has none) imports from the port's package of the same
+  path, but a stated list of JAX-only names.
 
 Tolerances: 1e-6 of the reference's largest magnitude for fp32 values
 (NaN and the infinities exact), shapes and types exact."""
 
+import importlib
 import inspect
+import pkgutil
+import types
 
 import jax
 import jax.numpy as jnp
@@ -75,13 +88,6 @@ def test_last_axis_norms_keep_their_bits():
                        P.layer_norm(x, s, b, axis=-1))
     assert torch.equal(P.layer_norm(x, s, b), P.layer_norm(x, s, b, axis=1))
     assert torch.equal(P.rms_norm(x, s), P.rms_norm(x, s, axis=-1))
-
-
-def test_signatures_match_the_reference():
-    for name in ("layer_norm", "rms_norm", "softmax_cross_entropy_sparse"):
-        ours = list(inspect.signature(getattr(P, name)).parameters)
-        ref = list(inspect.signature(getattr(J, name)).parameters)
-        assert ours == ref, (name, ours, ref)
 
 
 def test_cross_entropy_takes_label_ids_by_keyword():
@@ -221,3 +227,267 @@ def test_ensure_repeatable_names_what_it_switched(cudnn_switch):
     assert torch.backends.cudnn.deterministic is False
     assert ensure_repeatable(_conv_trainer().model) is True
     assert torch.backends.cudnn.deterministic is True
+
+
+# ------------------------------------- the reference's parameters (item 5)
+
+# Names only JAX has: Pallas block choices and its interpreter, buffer
+# donation, jit's arguments, a device count of the CPU backend, a jaxpr.
+JAX_ONLY_PARAMS = {"interpret", "block_q", "block_k", "donate", "sharding",
+                   "static_argnums", "cpu_devices_per_proc", "fn_or_jaxpr"}
+_SHARDS = {"x"}   # the collectives take the list of shards a process holds
+# Parameters that are another object in the port by design (ROADMAP queue 3
+# item 5): the list collectives' shards, the per-rank attention cores'
+# chunk lists (``qs``, ``ks``, ``vs``), and a pytree where the port takes a
+# module, a name dict or a trainer; the port's ``init.ones`` / ``zeros``
+# draw nothing and take a generator.
+BY_DESIGN = {
+    **{f"hetu_tpu.parallel.collectives.{f}": _SHARDS for f in (
+        "all_reduce", "all_reduce_mean", "pmean", "reduce_scatter",
+        "all_gather", "all_to_all", "hierarchical_all_to_all", "broadcast",
+        "ppermute", "send_next", "recv_prev")},
+    "hetu_tpu.parallel.ring_attention.ring_attention": {"q", "k", "v"},
+    "hetu_tpu.parallel.ring_attention.ulysses_attention": {"q", "k", "v"},
+    "hetu_tpu.parallel.spec.resolve_specs": {"tree"},
+    "hetu_tpu.parallel.strategies.ShardingStrategy.opt_specs":
+        {"model_spec_tree"},
+    "hetu_tpu.parallel.strategies.ShardingStrategy.install":
+        {"train_step", "eval_step", "state"},
+    "hetu_tpu.obs.numerics.tree_fingerprints": {"tree"},
+    "hetu_tpu.obs.numerics.group_stats": {"tree"},
+    "hetu_tpu.obs.memledger.note_train_state": {"state"},
+    "hetu_tpu.obs.memledger.MemoryLedger.note_train_state": {"state"},
+    "hetu_tpu.init.initializers.zeros": {"key"},
+    "hetu_tpu.init.initializers.ones": {"key"},
+}
+
+
+def _modules(root) -> list:
+    return [root.__name__] + [m.name for m in pkgutil.walk_packages(
+        root.__path__, root.__name__ + ".")]
+
+
+def _accepts(fn):
+    """``(names, takes **kwargs)`` of ``fn``'s parameters, or None."""
+    try:
+        ps = inspect.signature(fn).parameters.values()
+    except (TypeError, ValueError):
+        return None
+    return ({p.name for p in ps if p.kind not in (p.VAR_POSITIONAL,
+                                                  p.VAR_KEYWORD)},
+            any(p.kind == p.VAR_KEYWORD for p in ps))
+
+
+def _pairs(ref_mod, port_mod):
+    """``(qualified name, reference callable, port callable)`` for each
+    public function and method the two modules share by name."""
+    for name, obj in vars(ref_mod).items():
+        port = getattr(port_mod, name, None)
+        if name.startswith("_") or port is None or \
+                getattr(obj, "__module__", None) != ref_mod.__name__:
+            continue
+        qual = f"{ref_mod.__name__}.{name}"
+        if inspect.isclass(obj) and inspect.isclass(port):
+            for m in vars(obj):
+                if (m.startswith("_") and m not in ("__init__", "__call__")
+                        or not hasattr(port, m)):
+                    continue
+                yield f"{qual}.{m}", getattr(obj, m), getattr(port, m)
+        elif inspect.isfunction(obj) and callable(port):
+            yield qual, obj, port
+
+
+def test_signatures_match_the_reference():
+    for name in ("layer_norm", "rms_norm", "softmax_cross_entropy_sparse"):
+        ours = list(inspect.signature(getattr(P, name)).parameters)
+        ref = list(inspect.signature(getattr(J, name)).parameters)
+        assert ours == ref, (name, ours, ref)
+    import hetu_tpu
+    missing, seen = [], 0
+    for mod in _modules(hetu_tpu):
+        if ".ops.pallas" in mod:    # replaced by ops.kernels by design
+            continue
+        ref_mod = importlib.import_module(mod)
+        try:
+            port_mod = importlib.import_module(
+                mod.replace("hetu_tpu", "hetu_tpu_torch", 1))
+        except ModuleNotFoundError:
+            continue
+        for qual, a, b in _pairs(ref_mod, port_mod):
+            ra, pb = _accepts(a), _accepts(b)
+            if ra is None or pb is None or pb[1]:
+                continue
+            seen += 1
+            lack = ra[0] - pb[0] - {"self"} - JAX_ONLY_PARAMS \
+                - BY_DESIGN.get(qual, set())
+            if lack:
+                missing.append((qual, sorted(lack)))
+    assert seen > 500, seen
+    assert not missing, missing
+
+
+def test_expert_mlp_takes_the_reference_activation():
+    from hetu_tpu.core.module import named_parameters
+    from hetu_tpu.layers import moe as jmoe
+    from hetu_tpu_torch.interop import load_jax_params
+    from hetu_tpu_torch.layers import moe
+    from hetu_tpu_torch.ops import gelu
+    from hetu_tpu.core import set_random_seed
+    set_random_seed(5)
+    jm = jmoe.ExpertMLP(3, 8, 16, activation=jax.nn.relu)
+    tm = moe.ExpertMLP(3, 8, 16, activation=torch.relu, device="cpu")
+    load_jax_params(tm, {n: np.asarray(a) for n, a in named_parameters(jm)})
+    x = _x(3, 5, 8, seed=6)
+    _close(tm(torch.from_numpy(x)), jm(jnp.asarray(x)))
+    assert moe.ExpertMLP(3, 8, 16, device="cpu").activation is gelu
+    tm.activation = gelu
+    assert not torch.equal(tm(torch.from_numpy(x)),
+                           torch.from_numpy(np.asarray(jm(jnp.asarray(x)))))
+
+
+@pytest.mark.parametrize("with_stats", [False, True])
+def test_dense_moe_block_matches_the_reference(with_stats):
+    from hetu_tpu.core import set_random_seed
+    from hetu_tpu.core.module import named_parameters
+    from hetu_tpu.models.moe_lm import MoEBlock as JaxBlock
+    from hetu_tpu.models.moe_lm import MoELMConfig as JaxConfig
+    from hetu_tpu_torch.interop import load_jax_params
+    from hetu_tpu_torch.models.moe_lm import MoEBlock, MoELMConfig
+    kw = dict(vocab_size=32, hidden_size=16, num_layers=1, num_heads=2,
+              num_experts=4)
+    set_random_seed(2)
+    jb = JaxBlock(JaxConfig(**kw), use_moe=False)
+    tb = MoEBlock(MoELMConfig(**kw), use_moe=False, device="cpu")
+    assert tb.moe is None
+    load_jax_params(tb, {n: np.asarray(a) for n, a in named_parameters(jb)})
+    x = _x(2, 6, 16, seed=7)
+    jy, jaux = jb(jnp.asarray(x), with_stats=with_stats)
+    ty, taux = tb(torch.from_numpy(x), with_stats=with_stats)
+    _close(ty, jy)
+    if with_stats:
+        assert jaux[1] is None and taux[1] is None
+        jaux, taux = jaux[0], taux[0]
+    assert float(taux) == float(jaux) == 0.0
+
+
+def test_dense_blocks_leave_the_lm_stats_to_the_moe_blocks():
+    from hetu_tpu_torch.models.moe_lm import MoEBlock, MoELM, MoELMConfig
+    cfg = MoELMConfig(vocab_size=32, hidden_size=16, num_layers=2,
+                      num_heads=2, num_experts=4)
+    lm = MoELM(cfg, device="cpu")
+    lm.blocks[1] = MoEBlock(cfg, use_moe=False, device="cpu")
+    ids = torch.from_numpy(np.random.default_rng(0).integers(0, 32, (2, 8)))
+    _, (aux, stats) = lm(ids, with_stats=True)
+    _, (aux1, stats1) = lm.blocks[0](lm.wte(ids) + lm.wpe(
+        torch.arange(8)), with_stats=True)
+    assert set(stats) == set(stats1)
+    assert float(aux) == float(aux1)
+
+
+def test_convolutions_take_precision():
+    x, w = _x(2, 6, 6, 3), _x(3, 3, 3, 4, seed=1)
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    ref = J.conv2d(jnp.asarray(x), jnp.asarray(w), precision="highest")
+    ours = P.conv2d(tx, tw, precision="highest")
+    assert torch.equal(ours, P.conv2d(tx, tw))
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=0,
+                               atol=1e-5)
+    ref_t = J.conv2d_transpose(jnp.asarray(x), jnp.asarray(w), 2,
+                               precision="highest")
+    ours_t = P.conv2d_transpose(tx, tw, 2, precision="highest")
+    assert torch.equal(ours_t, P.conv2d_transpose(tx, tw, 2))
+    np.testing.assert_allclose(ours_t.numpy(), np.asarray(ref_t), rtol=0,
+                               atol=1e-5)
+
+
+def test_timer_section_takes_result():
+    from hetu_tpu.exec.profiler import HetuTimer as JaxTimer
+    from hetu_tpu_torch.exec.profiler import HetuTimer
+    for timer, x in ((JaxTimer(), jnp.ones(3)), (HetuTimer(), torch.ones(3))):
+        with timer("section", result=x):
+            pass
+        with timer("section"):
+            pass
+        assert timer.counts["section"] == 2 and timer.totals["section"] > 0
+
+
+def test_export_fn_names_closure_constants():
+    from hetu_tpu.interop.onnx_export import export_fn as jax_export
+    from hetu_tpu_torch.interop.onnx_export import export_fn
+    w, b, x = _x(3, 4), _x(4, seed=1), _x(2, 3, seed=2)
+    jw, jb = jnp.asarray(w), jnp.asarray(b)
+    tw, tb = torch.from_numpy(w), torch.from_numpy(b)
+    jp = jax_export(lambda a: a @ jw + jb, jnp.asarray(x),
+                    const_names={id(jw): "weight"})
+    tp = export_fn(lambda a: a @ tw + tb, torch.from_numpy(x),
+                   const_names={id(tw): "weight"})
+    for proto in (jp, tp):
+        inits = {t.name for t in proto.graph.initializers}
+        assert "weight" in inits, inits
+        uses = {i for n in proto.graph.nodes for i in n.inputs}
+        assert "weight" in uses
+    plain = export_fn(lambda a: a @ tw + tb, torch.from_numpy(x))
+    assert "weight" not in {t.name for t in plain.graph.initializers}
+
+
+# ------------------------------------------- package exports (item 6)
+
+# What only JAX has: ``InstrumentedJit`` / ``instrument`` wrap ``jax.jit``
+# (``obs.watch`` takes their place); ``Module``, ``FrozenDict``,
+# ``trainable_mask`` and ``tree_replace`` are the reference's pytree
+# module, which ``torch.nn.Module`` replaces (parameters against buffers,
+# updated in place); ``named_shardings`` and ``shard_tree`` build
+# ``jax.sharding.NamedSharding``\ s.
+JAX_ONLY_NAMES = {"InstrumentedJit", "instrument", "Module", "FrozenDict",
+                  "trainable_mask", "tree_replace", "named_shardings",
+                  "shard_tree"}
+
+
+def _exports(mod) -> list:
+    names = getattr(mod, "__all__", None)
+    if names is None:
+        names = [n for n, v in vars(mod).items() if not n.startswith("_")
+                 and not isinstance(v, types.ModuleType)]
+    return sorted(set(names) - JAX_ONLY_NAMES)
+
+
+def test_every_reference_export_imports_from_the_port():
+    import hetu_tpu
+    missing, seen = [], 0
+    for mod in _modules(hetu_tpu):
+        if ".ops.pallas" in mod:
+            continue
+        ref_mod = importlib.import_module(mod)
+        if not hasattr(ref_mod, "__path__"):
+            continue          # packages only
+        port = importlib.import_module(
+            mod.replace("hetu_tpu", "hetu_tpu_torch", 1))
+        for name in _exports(ref_mod):
+            seen += 1
+            if not hasattr(port, name):
+                missing.append(f"{port.__name__}.{name}")
+    assert seen > 500, seen
+    assert not missing, missing
+    from hetu_tpu_torch.obs import MetricsRegistry, span  # noqa: F401
+    from hetu_tpu_torch import get_seed_status, param_count  # noqa: F401
+
+
+def test_param_count_matches_the_reference():
+    from hetu_tpu.core import param_count as jax_count, set_random_seed
+    from hetu_tpu.models.resnet import resnet18 as jax_resnet18
+    from hetu_tpu.models.gpt import GPT as JaxGPT, GPTConfig as JaxCfg
+    from hetu_tpu_torch import GPT, GPTConfig, param_count
+    from hetu_tpu_torch.core import named_parameters
+    from hetu_tpu_torch.models.resnet import resnet18
+    kw = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=4,
+              max_seq_len=16)
+    set_random_seed(0)
+    pairs = ((JaxGPT(JaxCfg(**kw)), GPT(GPTConfig(**kw), device="cpu")),
+             (jax_resnet18(num_classes=10), resnet18(num_classes=10,
+                                                     device="cpu")))
+    for jm, tm in pairs:
+        assert param_count(tm) == jax_count(jm) > 0
+        from hetu_tpu.core.module import named_parameters as jax_named
+        assert {n for n, _ in named_parameters(tm)} == \
+            {n for n, _ in jax_named(jm)}
+    assert param_count({"a": torch.zeros(3, 4), "b": [torch.zeros(5)]}) == 17

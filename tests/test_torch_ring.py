@@ -1,7 +1,7 @@
 """The port's sequence-parallel ring (``hetu_tpu_torch.parallel``) against
 the JAX package's, on the JAX tests' ``sp=4, dp=2`` mesh of virtual CPU
 devices with the Pallas kernels in interpret mode; the port runs its
-plain versions on a local ``sp=4`` mesh on the CPU.
+plain versions on a local mesh of the same spec on the CPU.
 
 - the block kernels' plain versions against ``flash_block_fwd`` /
   ``flash_block_bwd(..., interpret=True)`` fed the same GLOBAL lse and
@@ -15,7 +15,10 @@ plain versions on a local ``sp=4`` mesh on the CPU.
   ring (logits, loss and step-0 gradients at the tolerances of
   ``tests/test_torch_train.py``), then three AdamW ``Trainer`` steps
   against the port's own GPT without the ring on the same weights;
-- the local collectives, and what the ring refuses."""
+- the blockwise core with ``remat=False`` against ``remat=True`` and
+  the JAX one;
+- the local collectives, what the ring accepts (``head_axis``, the
+  ``sp=4, dp=2`` mesh) and what it refuses."""
 
 import jax
 import jax.numpy as jnp
@@ -53,7 +56,7 @@ def sp_mesh():
 
 @pytest.fixture
 def mesh():
-    return make_mesh(MeshSpec(sp=4), device="cpu")
+    return make_mesh(MeshSpec(sp=4, dp=2), device="cpu")
 
 
 def _global_stats(q, k, v, do, causal, c):
@@ -238,6 +241,29 @@ def test_three_trainer_steps_match_the_model_without_the_ring(mesh, impl):
                                    err_msg=name)
 
 
+def test_blockwise_remat_changes_no_number(sp_mesh, mesh):
+    """``remat=False`` keeps each visit's intermediates instead of
+    recomputing them: the same output and gradients as ``remat=True``,
+    and as the JAX core without remat."""
+    q, k, v = _qkv(seed=3)
+    jfn = jax_ring_attn_fn(sp_mesh, impl="blockwise", remat=False)
+    jout, jgrads = jax.jit(jax.value_and_grad(
+        lambda q, k, v: (jfn(q, k, v, causal=True) ** 2).mean(),
+        argnums=(0, 1, 2)))(*map(jnp.asarray, (q, k, v)))
+    got = {}
+    for remat in (True, False):
+        ts = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+        loss = (ring_attn_fn(mesh, impl="blockwise", remat=remat)(
+            *ts, causal=True) ** 2).mean()
+        loss.backward()
+        got[remat] = [loss.detach()] + [t.grad for t in ts]
+    assert all(torch.equal(a, b) for a, b in zip(got[True], got[False]))
+    np.testing.assert_allclose(float(got[False][0]), float(jout), rtol=2e-5)
+    for a, b in zip(got[False][1:], jgrads):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4,
+                                   atol=1e-5)
+
+
 def test_local_collectives():
     xs = [torch.full((2,), float(i)) for i in range(4)]
     assert [float(x[0]) for x in send_next(xs)] == [3, 0, 1, 2]
@@ -264,10 +290,14 @@ def test_what_the_ring_refuses(mesh):
             fn(q[:, :14], q[:, :14], q[:, :14])
     with pytest.raises(ValueError, match="heads not divisible"):
         ulysses_attn_fn(mesh)(q[:, :, :3], q[:, :, :3], q[:, :, :3])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ring_attn_fn(mesh, head_axis="tp")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ulysses_attn_fn(mesh, head_axis="tp")
+    # every canonical axis exists on the mesh (size 1 when unused), so
+    # "tp" names one; a foreign name is refused, as the reference does
+    assert ring_attn_fn(mesh, head_axis="tp").spec == ("dp", "sp", "tp")
+    assert ulysses_attn_fn(mesh, head_axis="tp").spec == ("dp", "sp", "tp")
+    assert ring_attn_fn(mesh).spec == ("dp", "sp", None)
+    for make in (ring_attn_fn, ulysses_attn_fn):
+        with pytest.raises(ValueError, match="head_axis"):
+            make(mesh, head_axis="heads")
     for knob in ("interpret", "block_q", "block_k"):
         with pytest.raises(TypeError, match=knob):
             ring_attn_fn(mesh, **{knob: True})
@@ -275,7 +305,6 @@ def test_what_the_ring_refuses(mesh):
         ring_attn_fn(mesh, impl="pallas")
     with pytest.raises(ValueError, match="not in mesh axes"):
         ring_attn_fn(mesh, axis="cp")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_mesh(MeshSpec(sp=4, dp=2), device="cpu")
+    assert make_mesh(MeshSpec(sp=4, dp=2), device="cpu").shape["dp"] == 2
     with pytest.raises(ValueError, match="mesh on"):
         ring_attn_fn(mesh)(*(q.to("meta"),) * 3)

@@ -577,8 +577,9 @@ def test_refusals(jax_params):
     tr = Trainer(_port_tiny(jax_params), AdamOptimizer(1e-2), _loss,
                  strategy=tstrat.MegatronLM(2, pp=2, mesh=_mesh(pp=2, tp=2)))
     assert len(tr._sharded.models) == 4
-    with pytest.raises(NotImplementedError, match="part 4"):
-        _mesh(sp=2, tp=2)
+    assert _mesh(sp=2, tp=2).shape["sp"] == 2     # sequence parallelism too
+    with pytest.raises(NotImplementedError, match="part 12"):
+        _mesh(sp=2, pp=2)
     with pytest.raises(NotImplementedError, match="part 5"):
         _mesh(ep=2, tp=2)
     conv = torch.nn.Sequential(Conv2d(3, 8, **CPU))
