@@ -432,11 +432,31 @@ where it happened; any failure exits non-zero:
    ms; then the block pair at a rank's chunk, the flash pair at
    Ulysses' rank shape (B=4, H=3) and the CE pair at a rank's
    vocabulary shard timed;
-23. a ``kernels`` JSON line (the one-kv-block flash pair once for each
+23. expert parallelism: (a) ``__graft_entry__.py``'s config B at
+   ``bench.py`` config 3's widths (the MoE LM, vocabulary 32000, hidden
+   1024, 4 layers, 16 heads, 8 experts, top-1, capacity factor 1.25,
+   32 x 256, fp32) with the flash ring on a local dp=2 ep=2 sp=2 mesh
+   under ``ShardingStrategy(DP_RULES, batch_axes=("dp", "ep"))``: the
+   step-0 loss (1e-6 relative) and every gradient (1e-5 of its max)
+   against the same weights on ``MeshSpec(ep=2)`` with the flash core,
+   every rank's reduced gradients bitwise its ep index's, a control
+   routing each rank's own (dp, ep) piece that must leave the loss limit
+   (at capacity factor 0.5 where 1.25 drops no token), then 3 AdamW
+   steps with 48 block forwards and backwards a step; (b) the
+   hierarchical exchange, ``MoELayer(axis=("ep", "tp"))`` at config 3's
+   layer, bitwise the flat ep=4 layer and within ``MOE_TOL`` of four
+   single-group calls; (c) ep=2 across two processes of this script over
+   gloo (``--ep-worker``), 4 x 256 rows each, losses and step-0 gradients
+   bitwise a local ep=2 run; (d) ``DistGCN15D`` on a gr=2 x gc=2 mesh
+   over a 16,384-node stochastic-block graph against the dense oracle,
+   then 5 Adam steps; then the block pair at a rank's chunk and the
+   flash pair at the reference's shape timed;
+24. a ``kernels`` JSON line (the one-kv-block flash pair once for each
    path that runs it: phase 8 at seq 512, phase 10's flash arm, phase
-   11's ViT; the flash and CE pairs at phase 20's rank shapes, phase
-   21's microbatch and shard shapes and phase 22's), then the last line
-   ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+   11's ViT, phase 23's reference in fp32; the flash and CE pairs at
+   phase 20's rank shapes, phase 21's microbatch and shard shapes and
+   phase 22's, the block pair at phases 22's and 23's rank chunks), then
+   the last line ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Phase 3 also holds the fused residual + dropout + LayerNorm kernels
 against their plain versions at T = 12288, D = 1024, rate 0.1 (BERT-large
@@ -447,7 +467,7 @@ the ring's block backward fed the block's own lse, a control that must
 fail its check, and the plain versions of the CE forward fed h and W,
 and of the flash forward fed q, k and v, rounded to TF32: controls that
 must fail the fp32 limits (a kernel that ran one-pass TF32 products
-would).  Phase 23 prints each flash kernel's time beside the prediction
+would).  Phase 24 prints each flash kernel's time beside the prediction
 made before its tensor-core redesign first ran, and likewise paged
 decode's, the fused-LN backward's and LM-head sampling's beside their
 predictions and their times before their redesign, and paged decode's
@@ -9806,6 +9826,526 @@ def sp_phase(fl, ce, gpt_mod, card, train_losses, dev="cuda", cfg=None,
     return out, time.monotonic() - t_start
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: expert parallelism beside the other mesh axes -- the
+# reference's config B (a MoE LM with the ring over dp x ep x sp under
+# ShardingStrategy(DP_RULES, batch_axes=("dp", "ep"))) at bench.py config
+# 3's widths, the hierarchical (ep, tp) exchange, ep across two processes
+# and the 1.5D GCN.
+# ---------------------------------------------------------------------------
+
+# __graft_entry__.py's config B at bench.py config 3's widths
+EP_CFG = dict(vocab_size=32000, hidden_size=1024, num_layers=4,
+              num_heads=16, num_experts=8, top_k=1, capacity_factor=1.25,
+              max_seq_len=256)
+EP_MESH = dict(dp=2, ep=2, sp=2)
+EP_BATCH = 32
+EP_STEPS = 3
+EP_TOL = 1e-6           # step-0 loss, relative
+EP_GRAD_TOL = 1e-5      # step-0 gradients, of each one's largest value
+EP_CONTROL_CF = 0.5     # the control's capacity factor where 1.25 drops none
+EP_PROC_BATCH = 4       # (c): rows a process holds
+GCN15_NODES = 16384     # (d): a 1.07 GB dense fp32 adjacency
+GCN15_STEPS = 5
+GCN15_TOL = 1e-5
+
+
+def ep_loss(m, b, k):
+    return m.loss(b, training=True)
+
+
+def ep_counts(fl):
+    return (fl.block_fwd_launch_count(), fl.block_bwd_launch_count(),
+            fl.fwd_launch_count(), fl.bwd_launch_count())
+
+
+def ep_model(cfg, dev, mesh, attn_fn):
+    from hetu_tpu_torch.models.moe_lm import MoELM
+    return MoELM(cfg, mesh=mesh, attn_fn=attn_fn,
+                 generator=torch.Generator().manual_seed(0), device=dev)
+
+
+def ep_trainer(cfg, dev, mesh, attn_fn):
+    from hetu_tpu_torch import AdamWOptimizer, Trainer
+    from hetu_tpu_torch.parallel import ShardingStrategy
+    from hetu_tpu_torch.parallel.spec import DP_RULES
+    return Trainer(ep_model(cfg, dev, mesh, attn_fn),
+                   AdamWOptimizer(3e-4, weight_decay=0.01), ep_loss,
+                   strategy=ShardingStrategy(mesh=mesh, rules=DP_RULES,
+                                             batch_axes=("dp", "ep")))
+
+
+def ep_full_grads(sh, grads):
+    """Each parameter's reduced gradient joined from the ranks at dp = 0,
+    sp = 0 (one per ep index: the experts' slices), and whether every
+    rank's reduced gradients equal those of its ep index's rank there
+    bitwise (a replica counted twice, or its share lost, would not)."""
+    from hetu_tpu_torch.parallel.spec import gather_param
+    home = {c["ep"]: i for i, c in enumerate(sh.coords)
+            if c["dp"] == 0 and c["sp"] == 0}
+    same = all(torch.equal(grads[i][n], grads[home[c["ep"]]][n])
+               for i, c in enumerate(sh.coords) for n in grads[i])
+    idx = sorted(home.values())
+    full = {n: gather_param([grads[i][n] for i in idx], pl.shape,
+                            pl.tp_spec, [sh.coords[i] for i in idx],
+                            sh.mesh.shape, pl.blocks)
+            for n, pl in sh.place.items()}
+    return full, same
+
+
+def ep_set_cf(models, cf):
+    for m in models:
+        for blk in m.blocks:
+            blk.moe.gate.capacity_factor = cf
+            blk.moe.gate.eval_capacity_factor = cf
+
+
+@contextlib.contextmanager
+def ep_own_piece_routing(sh):
+    """The control: each rank routes its own (dp, ep) piece, as if the
+    batch were cut over ep alone (the ``MeshSpec(ep=4)`` function)."""
+    layers = [blk.moe for m in sh.models for blk in m.blocks]
+    saved = [lay._rank for lay in layers]
+    for lay in layers:
+        handle, _, ep_axes = lay._rank
+        lay._rank = (handle, ep_axes, ep_axes)
+    try:
+        yield
+    finally:
+        for lay, r in zip(layers, saved):
+            lay._rank = r
+
+
+def ep_reference(cfg, ids, fl, card, dev):
+    """(a)'s reference: the same model and weights on ``MeshSpec(ep=2)``
+    alone with the flash core (``flash_attn_fn(native_layout=True)``),
+    step 0's loss and gradients, the routing stats, and where capacity
+    factor 1.25 drops no token the loss at ``EP_CONTROL_CF``."""
+    from hetu_tpu_torch.ops.kernels.flash import flash_attn_fn
+    from hetu_tpu_torch.parallel import MeshSpec, make_mesh
+    model = ep_model(cfg, dev, make_mesh(MeshSpec(ep=2), device=dev),
+                     flash_attn_fn(native_layout=True))
+    with torch.no_grad():
+        _, (_, stats) = model(ids, training=True, with_stats=True)
+    overflow = float(stats["overflow_frac"])
+    before = (fl.fwd_launch_count(), fl.bwd_launch_count())
+    loss, _ = model.loss(ids, training=True)
+    loss.backward()
+    launches = (fl.fwd_launch_count() - before[0],
+                fl.bwd_launch_count() - before[1])
+    out = {"loss": float(loss.detach()), "overflow": overflow,
+           "grads": {n: p.grad for n, p in model.named_parameters()},
+           "launches": launches, "control_cf": cfg.capacity_factor}
+    if overflow == 0.0:
+        out["control_cf"] = EP_CONTROL_CF
+        ep_set_cf([model], EP_CONTROL_CF)
+        with torch.no_grad():
+            out["control_loss"] = float(model.loss(ids, training=True)[0])
+    else:
+        out["control_loss"] = out["loss"]
+    print(f"(a) reference, MeshSpec(ep=2) with the flash core: step-0 "
+          f"loss {out['loss']:.6f}, overflow {overflow:.4f} at capacity "
+          f"factor {cfg.capacity_factor}"
+          + (f" (no token dropped: the control runs at capacity factor "
+             f"{EP_CONTROL_CF}, loss there {out['control_loss']:.6f})"
+             if overflow == 0.0 else "")
+          + f"; flash fwd / bwd launches {launches}; {card}")
+    del model
+    return out
+
+
+def ep_config_b(cfg, ids, fl, col, card, dev):
+    """(a) config B at bench.py config 3's widths on a local dp2 ep2 sp2
+    mesh: step 0 against the reference, the replicas, the own-piece
+    control, then ``EP_STEPS`` AdamW steps with their launches, the
+    exchange's calls and bytes, the step time and the peak."""
+    from hetu_tpu_torch.parallel import MeshSpec, make_mesh, ring_attn_fn
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    ref = ep_reference(cfg, ids, fl, card, dev)
+    mesh = make_mesh(MeshSpec(**EP_MESH), device=dev)
+    trainer = ep_trainer(cfg, dev, mesh, ring_attn_fn(mesh))
+    sh = trainer._sharded
+    row = {"ranks": len(sh.held), "overflow": ref["overflow"],
+           "param_bytes": [sum(p.numel() * p.element_size()
+                               for p in m.parameters()) for m in sh.models]}
+    out = sh.forward_backward(ep_loss, ids, None)
+    loss = float(sh.mean_loss([o[0] for o in out]))
+    del out
+    full, same = ep_full_grads(sh, sh.reduce_grads())
+    for m in sh.models:
+        for p in m.parameters():
+            p.grad = None
+    lrel = abs(loss - ref["loss"]) / abs(ref["loss"])
+    worst = max((((full[n] - g).abs().max()
+                  / g.abs().max().clamp_min(1e-30)).item(), n)
+                for n, g in ref["grads"].items())
+    del full, ref["grads"]
+    print(f"(a) config B dp2 ep2 sp2 step 0: loss {loss:.6f} vs "
+          f"{ref['loss']:.6f}, relative {lrel:.3e} (tol {EP_TOL:g}); worst "
+          f"gradient {worst[1]}: {worst[0]:.3e} of its max (tol "
+          f"{EP_GRAD_TOL:g}); every rank's reduced gradients bitwise its "
+          f"ep index's (dp 0, sp 0) rank's: {same}; {card}")
+    row.update(rel=lrel, grad_rel=worst[0], same=same)
+    cf = ref["control_cf"]
+    ep_set_cf(sh.models, cf)
+    with torch.no_grad():
+        right = float(sh.evaluate(ep_loss, ids)[0])
+        with ep_own_piece_routing(sh):
+            own = float(sh.evaluate(ep_loss, ids)[0])
+    ep_set_cf(sh.models, cfg.capacity_factor)
+    base = ref["control_loss"]
+    row["control"] = {"cf": cf, "right": abs(right - base) / abs(base),
+                      "own": abs(own - base) / abs(base)}
+    print(f"(a) control at capacity factor {cf}: the reference block "
+          f"routing {row['control']['right']:.3e} relative (tol "
+          f"{EP_TOL:g}); each rank routing its own (dp, ep) piece (the "
+          f"MeshSpec(ep=4) function) {row['control']['own']:.3e} relative "
+          f"(must exceed {EP_TOL:g}); {card}")
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    col.reset_counts()
+    losses, times, per_step = [], [], []
+    for _ in range(EP_STEPS):
+        before = ep_counts(fl)
+        sync()
+        t0 = time.monotonic()
+        losses.append(float(trainer.step(ids)["loss"]))
+        sync()
+        times.append(time.monotonic() - t0)
+        per_step.append(tuple(a - b for a, b in
+                              zip(ep_counts(fl), before)))
+    kinds = {k: (v["calls"] // EP_STEPS, v["bytes"] // EP_STEPS)
+             for k, v in col.counts().items()}
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
+    print(f"(a) {EP_STEPS} AdamW steps: losses "
+          f"{[round(x, 6) for x in losses]}; launches a step (block fwd, "
+          f"bwd, flash fwd, bwd) {per_step}; collectives a step (calls, "
+          f"bytes) {kinds}; median step {med * 1e3:.3f} ms "
+          f"({[round(t * 1e3, 3) for t in times]}; eight ranks in turn on "
+          f"one card, not a multi-card step), {ids.numel() / med:.1f} "
+          f"tokens/s, peak memory {peak} bytes ({peak / 2**30:.3f} GiB); "
+          f"parameter bytes a rank {row['param_bytes']}; {card}")
+    row.update(losses=losses, per_step=per_step, kinds=kinds,
+               step_ms=med * 1e3, peak=peak, ref_launches=ref["launches"])
+    del trainer, sh
+    return row
+
+
+def ep_hier_check(cfg, card, dev="cuda", T=MOE_GATE_T):
+    """(b) ``MoELayer(axis=("ep", "tp"))`` on ``MeshSpec(ep=2, tp=2)`` at
+    config 3's layer (top-2, ``T`` tokens), forward and backward: bitwise
+    the flat ``ep=4`` layer, within ``MOE_TOL`` of four single-group
+    calls."""
+    from hetu_tpu_torch.layers import moe
+    from hetu_tpu_torch.parallel import MeshSpec, make_mesh
+    from hetu_tpu_torch.parallel import collectives as col
+    d, E = cfg.hidden_size, cfg.num_experts
+    g = torch.Generator().manual_seed(23)
+    gate = moe.TopKGate(d, E, 2, capacity_factor=1.25, generator=g,
+                        device=dev)
+    experts = moe.ExpertMLP(E, d, 4 * d, generator=g, device=dev)
+    x = torch.randn((T, d), generator=g).to(dev)
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+
+    def run(layer):
+        for p in (*gate.parameters(), *experts.parameters()):
+            p.grad = None
+        xi = x.clone().requires_grad_()
+        col.reset_counts()
+        sync()
+        t0 = time.monotonic()
+        y, (aux, stats) = layer(xi, with_stats=True)
+        ((y ** 2).mean() + 0.01 * aux).backward()
+        sync()
+        ms = (time.monotonic() - t0) * 1e3
+        grads = [xi.grad] + [p.grad.clone() for p in
+                             (*gate.parameters(), *experts.parameters())]
+        return y.detach(), aux.detach(), stats, grads, ms, col.counts()
+
+    layers = [moe.MoELayer(gate, experts, axis=("ep", "tp"),
+                           mesh=make_mesh(MeshSpec(ep=2, tp=2), device=dev)),
+              moe.MoELayer(gate, experts,
+                           mesh=make_mesh(MeshSpec(ep=4), device=dev))]
+    for layer in layers:    # warm-up: the times are a second call's
+        run(layer)
+    hier, flat = (run(layer) for layer in layers)
+    same = (torch.equal(hier[0], flat[0]) and torch.equal(hier[1], flat[1])
+            and all(torch.equal(a, b) for a, b in zip(hier[3], flat[3])))
+    one = moe.MoELayer(gate, experts)
+    with torch.no_grad():
+        parts = [one(s) for s in x.chunk(4)]
+    ref = torch.cat([p[0] for p in parts])
+    ref_aux = sum(p[1] for p in parts) / 4
+    y_err = ((hier[0] - ref).abs().max() / ref.abs().max()).item()
+    a_err = abs(float(hier[1]) - float(ref_aux)) / abs(float(ref_aux))
+    a2a = hier[5].get("all_to_all", {})
+    print(f"(b) hierarchical exchange over (ep, tp) on MeshSpec(ep=2, "
+          f"tp=2), d {d}, {E} experts, hidden {4 * d}, top-2, capacity "
+          f"factor 1.25, {T} tokens: forward and backward bitwise the flat "
+          f"ep=4 layer's: {same}; y {y_err:.3e}, aux {a_err:.3e} relative "
+          f"to four single-group calls (tol {MOE_TOL:g}); overflow "
+          f"{float(hier[2]['overflow_frac']):.4f}; {a2a.get('calls', 0)} "
+          f"exchanges, {a2a.get('bytes', 0)} bytes; forward + backward "
+          f"{hier[4]:.1f} ms (flat {flat[4]:.1f}), a second call; {card}")
+    return {"same": same, "y_err": y_err, "aux_err": a_err,
+            "ms": hier[4], "a2a": a2a}
+
+
+def ep_digest(sh):
+    """Each held rank's step-0 gradients as digests of their bytes, keyed
+    by the rank's ep coordinate and the parameter."""
+    import hashlib
+    return {f"{c['ep']}:{name}": hashlib.sha1(
+        p.grad.detach().float().cpu().numpy().tobytes()).hexdigest()
+        for c, m in zip(sh.coords, sh.models)
+        for name, p in m.named_parameters()}
+
+
+def ep_two_rank_run(cfg, dev, mesh, ids):
+    """An ep = 2 run of config B's model without sp on ``mesh`` (local or
+    over processes), the flash core: ``EP_STEPS`` steps with their
+    losses and times, step 0's gradient digests and the collectives a
+    step."""
+    from hetu_tpu_torch.ops.kernels.flash import flash_attn_fn
+    from hetu_tpu_torch.parallel import collectives as col
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    tr = ep_trainer(cfg, dev, mesh, flash_attn_fn(native_layout=True))
+    losses, times, digest = [], [], None
+    col.reset_counts()
+    with col.timed():
+        for _ in range(EP_STEPS):
+            sync()
+            t0 = time.monotonic()
+            losses.append(float(tr.step(ids)["loss"]))
+            sync()
+            times.append(time.monotonic() - t0)
+            digest = digest or ep_digest(tr._sharded)
+    kinds = {k: {"calls": v["calls"] // EP_STEPS,
+                 "bytes": v["bytes"] // EP_STEPS,
+                 "ms": v["s"] * 1e3 / EP_STEPS,
+                 "composed": v["composed"] // EP_STEPS}
+             for k, v in col.counts().items()}
+    del tr
+    return {"losses": losses, "digest": digest,
+            "step_ms": [t * 1e3 for t in times], "kinds": kinds}
+
+
+def ep_ids(cfg, dev, rows):
+    return torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (rows, cfg.max_seq_len))).to(dev)
+
+
+def ep_worker(rank, nproc, coord, dev, cfg_kw):
+    """(c) one process of two: joins a gloo world, its tensors on ``dev``
+    (the shared card), ep = 2 over the process mesh (this process one ep
+    rank and its ``EP_PROC_BATCH`` rows); prints one ``EXPPAR`` JSON
+    line."""
+    import datetime
+
+    import torch.distributed as dist
+    from hetu_tpu_torch.models.moe_lm import MoELMConfig
+    from hetu_tpu_torch.parallel import MeshSpec, make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if dev == "cpu":
+        torch.set_num_threads(1)   # one summation order, as the rehearsal
+    dist.init_process_group("gloo", init_method=f"tcp://{coord}",
+                            world_size=nproc, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    cfg = MoELMConfig(**cfg_kw)
+    mesh = make_mesh(MeshSpec(ep=nproc), device=dev, processes=True)
+    out = ep_two_rank_run(cfg, dev, mesh,
+                          ep_ids(cfg, dev, EP_PROC_BATCH * nproc))
+    print("EXPPAR " + json.dumps({"rank": rank, "run": out}), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def ep_processes(cfg, card, dev):
+    """(c) ep = 2 across two processes of this script over gloo, against
+    the same run on a local ep = 2 mesh: losses and every step-0
+    gradient digest bitwise, the exchanges' calls, bytes and ms."""
+    from hetu_tpu_torch.parallel import MeshSpec, make_mesh
+    t0 = time.monotonic()
+    local = ep_two_rank_run(cfg, dev, make_mesh(MeshSpec(ep=2), device=dev),
+                            ep_ids(cfg, dev, EP_PROC_BATCH * 2))
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    cfg_kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+              if f.name not in ("dtype", "remat")}
+    outs, rcs = st_spawn(
+        lambda r, port: ["--ep-worker", str(r), "2", f"127.0.0.1:{port}",
+                         dev, json.dumps(cfg_kw)], 2, 600)
+    rows = sorted(st_lines(outs, "EXPPAR"), key=lambda r: r["rank"])
+    assert rcs == [0, 0] and len(rows) == 2, (rcs, [o[-3000:] for o in outs])
+    a, b = (r["run"] for r in rows)
+    same = all(r["run"]["digest"][k] == local["digest"][k]
+               for r in rows for k in r["run"]["digest"])
+    print(f"(c) ep=2, two processes, gloo, tensors on the one card, "
+          f"{EP_PROC_BATCH} x {cfg.max_seq_len} rows a process: losses "
+          f"{a['losses']} and {b['losses']}; local ep=2 {local['losses']}; "
+          f"bitwise equal: {a['losses'] == local['losses']}; every step-0 "
+          f"gradient of both processes bitwise the local arm's: {same}; "
+          f"step ms {[round(t, 1) for t in a['step_ms']]} (local "
+          f"{[round(t, 1) for t in local['step_ms']]}); a step: "
+          + "; ".join(f"{k} {v['calls']} calls ({v['composed']} composed "
+                      f"from all_reduce), {v['bytes']} bytes, "
+                      f"{v['ms']:.1f} ms" for k, v in
+                      sorted(a["kinds"].items()))
+          + f" (gloo through host memory on one card, not a link); in "
+          f"{time.monotonic() - t0:.1f} s; {card}")
+    assert a["losses"] == local["losses"] == b["losses"], \
+        (a["losses"], b["losses"], local["losses"])
+    # step 0's loss precedes the gradients and AdamW nearly ignores a
+    # common scale: the digests hold an expert slice counted twice
+    assert same, "the step-0 gradients differ from the local ep=2 arm's"
+    assert a["kinds"].get("all_to_all", {}).get("calls", 0) > 0, a["kinds"]
+    assert a["losses"][-1] < a["losses"][0], a["losses"]
+    return {"proc": a, "local": local, "grads_same": same}
+
+
+def gcn15_graph(n, dev, seed=3):
+    """A stochastic-block graph of ``n`` nodes at ogbn-arxiv's density
+    (``arxiv_sbm``'s recipe: 40 blocks, 80% of the edges inside one),
+    the normalized dense adjacency on ``dev``, the features and labels."""
+    from hetu_tpu_torch.models.gnn import dense_adjacency, normalize_adjacency
+    rng = np.random.default_rng(seed)
+    e = n * ARXIV_EDGES // ARXIV_NODES
+    y = rng.integers(0, ARXIV_CLASSES, n)
+    order = np.argsort(y, kind="stable")
+    counts = np.bincount(y, minlength=ARXIV_CLASSES)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    src = rng.integers(0, n, e)
+    same = rng.random(e) < 0.8
+    pick = starts[y[src]] + (rng.random(e) * counts[y[src]]).astype(np.int64)
+    dst = np.where(same, order[pick], rng.integers(0, n, e))
+    edges = np.stack([np.concatenate([src, dst]), np.concatenate([dst, src])])
+    ei, w = normalize_adjacency(edges, n, device=dev)
+    a = dense_adjacency(ei, w, n)
+    centroids = rng.standard_normal((ARXIV_CLASSES, ARXIV_FEATS))
+    x = (centroids[y] + rng.standard_normal((n, ARXIV_FEATS))).astype(
+        np.float32)
+    return a, torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev), e
+
+
+def gcn15_check(card, dev="cuda", n=GCN15_NODES):
+    """(d) ``DistGCN15D(128, 256, 40, num_layers=3)`` on a local gr=2 x
+    gc=2 mesh over ``gcn15_graph(n)``: forward and step-0 gradients
+    against the dense oracle ``A @ (x W) + b`` with the same weights (the
+    biases seeded, so the oracle sees where they are added), then
+    ``GCN15_STEPS`` Adam steps with a falling loss."""
+    from hetu_tpu_torch import AdamOptimizer, Trainer
+    from hetu_tpu_torch.models import DistGCN15D
+    from hetu_tpu_torch.ops import softmax_cross_entropy_sparse
+    from hetu_tpu_torch.parallel import make_grid_mesh
+    from hetu_tpu_torch.parallel import collectives as col
+    t0 = time.monotonic()
+    a, x, y, e = gcn15_graph(n, dev)
+    mesh = make_grid_mesh({"gr": 2, "gc": 2}, device=dev)
+    model = DistGCN15D(ARXIV_FEATS, GCN_HIDDEN, ARXIV_CLASSES, mesh,
+                       num_layers=3, generator=torch.Generator().manual_seed(5),
+                       device=dev)
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(6)
+        for b in model.bs:
+            b.copy_(torch.randn(b.shape, generator=g))
+
+    def loss_of(logits):
+        return softmax_cross_entropy_sparse(logits, y).mean()
+
+    col.reset_counts()
+    out = model(a, x)
+    loss = loss_of(out)
+    loss.backward()
+    gathers = col.counts().get("all_gather", {})
+    ws = [p.detach().clone().requires_grad_() for p in model.parameters()]
+    h = x
+    n_layers = len(model.ws)
+    for i, (w, b) in enumerate(zip(ws[:n_layers], ws[n_layers:])):
+        h = a @ (h @ w) + b
+        if i < n_layers - 1:
+            h = torch.relu(h)
+    ref_loss = loss_of(h)
+    ref_loss.backward()
+    f_err = ((out - h).abs().max() / h.abs().max()).item()
+    worst = max(((p.grad - r.grad).abs().max()
+                 / r.grad.abs().max().clamp_min(1e-30)).item()
+                for p, r in zip(model.parameters(), ws))
+    del h, ws, out
+    trainer = Trainer(model, AdamOptimizer(GCN_LR),
+                      lambda m, b, k: (loss_of(m(a, x)), {}))
+    losses = [float(trainer.step(None)["loss"]) for _ in range(GCN15_STEPS)]
+    print(f"(d) DistGCN15D({ARXIV_FEATS}, {GCN_HIDDEN}, {ARXIV_CLASSES}, 3 "
+          f"layers) on gr=2 x gc=2, a stochastic-block graph of {n} nodes "
+          f"and {e} undirected edges (dense fp32 adjacency {a.numel() * 4} "
+          f"bytes): forward {f_err:.3e}, worst step-0 gradient "
+          f"{worst:.3e} of its max against A @ (x W) + b (tol "
+          f"{GCN15_TOL:g}); loss {float(ref_loss):.6f}; "
+          f"{gathers.get('calls', 0)} gathers of the partial products over "
+          f"gc ({gathers.get('bytes', 0)} bytes) a forward; Adam "
+          f"{GCN15_STEPS} steps {[round(v, 5) for v in losses]}; in "
+          f"{time.monotonic() - t0:.1f} s; {card}")
+    del trainer, model, a
+    return {"f_err": f_err, "grad_rel": worst, "losses": losses}
+
+
+def ep_phase(fl, card, dev="cuda", cfg=None, hier_tokens=MOE_GATE_T,
+             gcn_nodes=GCN15_NODES):
+    """Phase 23: (a) config B at config 3's widths on a local dp2 ep2 sp2
+    mesh against the ep=2 flash path, with the control; (b) the
+    hierarchical exchange; (c) ep=2 across two processes; (d) the 1.5D
+    GCN; then the block and flash pairs at (a)'s shapes.  Returns the
+    rows the summary needs."""
+    from hetu_tpu_torch.models.moe_lm import MoELMConfig
+    from hetu_tpu_torch.parallel import collectives as col
+    t_start = time.monotonic()
+    cfg = cfg or MoELMConfig(**EP_CFG)
+    ids = ep_ids(cfg, dev, EP_BATCH)
+    rows = {"a": ep_config_b(cfg, ids, fl, col, card, dev)}
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    rows["b"] = ep_hier_check(cfg, card, dev, hier_tokens)
+    rows["c"] = ep_processes(cfg, card, dev)
+    rows["d"] = gcn15_check(card, dev, gcn_nodes)
+    r = rows["a"]
+    assert r["rel"] <= EP_TOL and r["grad_rel"] <= EP_GRAD_TOL, r
+    assert r["same"], "a replica's gradients differ from its group's"
+    assert r["control"]["right"] <= EP_TOL, r["control"]
+    assert r["control"]["own"] > EP_TOL, \
+        "the step-0 check cannot tell each rank routing its own piece"
+    assert r["losses"][-1] < r["losses"][0], r["losses"]
+    if dev == "cuda":
+        # 4 (dp, ep) groups x 3 visits of a causal sp=2 ring x L layers
+        ring = 12 * cfg.num_layers
+        assert all(s[:4] == (ring, ring, 0, 0) for s in r["per_step"]), \
+            r["per_step"]
+        assert r["ref_launches"] == (cfg.num_layers, cfg.num_layers), r
+    b = rows["b"]
+    assert b["same"], "the (ep, tp) exchange differs from the flat ep=4 one"
+    assert b["y_err"] <= MOE_TOL and b["aux_err"] <= MOE_TOL, b
+    d = rows["d"]
+    assert d["f_err"] <= GCN15_TOL and d["grad_rel"] <= GCN15_TOL, d
+    assert d["losses"][-1] < d["losses"][0], d["losses"]
+    out = {"arms": rows}
+    if dev == "cuda":
+        gen = torch.Generator().manual_seed(23)
+        flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+        hd = cfg.hidden_size // cfg.num_heads
+        out["block"] = check_flash_block(
+            fl, flush, torch.float32, gen,
+            shape=(EP_BATCH // 4, cfg.num_heads, cfg.max_seq_len, hd), sp=2)
+        out["flash"] = check_flash(fl, flush, torch.float32,
+                                   cfg.max_seq_len, gen, timed=True,
+                                   B=EP_BATCH, H=cfg.num_heads)
+        del flush
+        torch.cuda.empty_cache()
+    return out, time.monotonic() - t_start
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--ps-dp-worker"]:
         # phase 14 (c)'s worker processes: rank, port, device, batch
@@ -9838,6 +10378,14 @@ def main() -> int:
             return 2
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return sp_worker(int(rank), int(n), coord, dev, json.loads(cfg_kw))
+    if sys.argv[1:2] == ["--ep-worker"]:
+        # phase 23 (c)'s two processes: rank, world, coordinator, device,
+        # the MoE LM config
+        rank, n, coord, dev, cfg_kw = sys.argv[2:7]
+        if dev == "cuda" and not torch.cuda.is_available():
+            return 2
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return ep_worker(int(rank), int(n), coord, dev, json.loads(cfg_kw))
     if sys.argv[1:2] in (["--nccl-world"], ["--nccl-pair"]):
         if not torch.cuda.is_available():
             return 2
@@ -10210,7 +10758,23 @@ def main() -> int:
                 "(causal) + 1 past (unmasked) visits at a dp2 sp2 tp2 rank's "
                 "chunk (4, 6, 512, 64)")
 
-    phase("23 summary")
+    phase("23 expert parallelism: config B (a MoE LM with the ring over a "
+          "local dp=2 ep=2 sp=2 mesh) at bench.py config 3's widths, the "
+          "hierarchical (ep, tp) exchange, ep=2 across two processes, the "
+          "1.5D GCN")
+    ex, ex_s = ep_phase(fl, smi)
+    ea = ex["arms"]
+    print(f"phase 23 in {ex_s:.1f} s; config B median step "
+          f"{ea['a']['step_ms']:.1f} ms, peak {ea['a']['peak'] / 2**30:.2f} "
+          f"GiB; two processes "
+          f"{statistics.median(ea['c']['proc']['step_ms']):.1f} ms a step; "
+          f"{smi}")
+    el = tuple(map(sum, zip(*ea["a"]["per_step"])))
+    ep_timed = ("mean per launch of one causal sp=2 layer: 2 diagonal "
+                "(causal) + 1 past (unmasked) visits at a dp2 ep2 sp2 "
+                "rank's chunk (8, 16, 128, 64)")
+
+    phase("24 summary")
     f32, bf16 = torch.float32, torch.bfloat16
     kernels = [
         dict(name="paged_decode_attention", route="cuda",
@@ -10389,6 +10953,30 @@ def main() -> int:
              path="dp=2 sp=2 tp=2, a rank's whole 4 x 1024 piece, N=4092 on "
                   "V_r=25129 (phase 22 (a))", launches=sl["a"][5],
              **sq["ce"][1]),
+        dict(name="flash_block_fwd_ep_rank", route="cuda",
+             source="hetu_tpu_torch/csrc/flash_attn.cu",
+             replaces="hetu_tpu/ops/pallas/flash.py:608",
+             path="config B: dp=2 ep=2 sp=2 MoE LM with the ring at config "
+                  "3's widths (phase 23 (a))", launches=el[0],
+             **ring_mix(ex["block"], 0, SP2_VISITS, ep_timed)),
+        dict(name="flash_block_bwd_ep_rank", route="cuda",
+             source="hetu_tpu_torch/csrc/flash_attn.cu",
+             replaces="hetu_tpu/ops/pallas/flash.py:619",
+             path="config B: dp=2 ep=2 sp=2 MoE LM with the ring at config "
+                  "3's widths (phase 23 (a))", launches=el[1],
+             **ring_mix(ex["block"], 1, SP2_VISITS, ep_timed)),
+        dict(name="flash_fwd_one_kv_block_moe_fp32", route="cuda",
+             source="hetu_tpu_torch/csrc/flash_attn.cu",
+             replaces="hetu_tpu/ops/pallas/flash.py:168",
+             path="config B's reference: the MoE LM on ep=2 with the flash "
+                  "core, B=32 H=16 S=256 fp32 (phase 23 (a))",
+             launches=ea["a"]["ref_launches"][0], **ex["flash"][0]),
+        dict(name="flash_bwd_one_kv_block_moe_fp32", route="cuda",
+             source="hetu_tpu_torch/csrc/flash_attn.cu",
+             replaces="hetu_tpu/ops/pallas/flash.py:358",
+             path="config B's reference: the MoE LM on ep=2 with the flash "
+                  "core, B=32 H=16 S=256 fp32 (phase 23 (a))",
+             launches=ea["a"]["ref_launches"][1], **ex["flash"][1]),
     ]
     print_predictions({
         ("flash_fwd", f32): fl_rows[f32][0],

@@ -20,15 +20,38 @@ exact zero, so the scatter's and the gather's atomics on CUDA add only
 exact zeros to a shared row: the values and the gradients are bitwise
 repeatable.
 
-Expert parallelism runs on a local mesh (``parallel.mesh``) whose ``ep``
-ranks all lie on one device, as the JAX ``shard_map`` body does on its
-mesh: the tokens are sharded along dim 0, each rank routes its shard with
-its own (local) capacity, the ``[E, C, d]`` buckets are exchanged with
-the tiled ``all_to_all`` of ``parallel.collectives``, rank ``r`` runs
-its ``E / ep`` experts on ``[E / ep, ep * C, d]``, the outputs go back
-by the reverse exchange, and ``aux`` and the routing stats are averaged
-over the ranks.  The hierarchical exchange (a tuple ``axis``) and ``ep``
-beside another axis above 1 wait for ROADMAP queue 1 item 10 part 5.
+Expert parallelism is the JAX ``shard_map`` body's, whose manual axes
+are the layer's ``axis`` (a name, or a tuple such as ``("ep", "tp")``:
+the hierarchical exchange, the flat exchange over the axes' product,
+first name outermost): the tokens' dim 0 is cut into ``ep`` blocks (the
+product of the axes' sizes), each block is routed with its own capacity,
+the ``[E, C, d]`` buckets are exchanged with the tiled ``all_to_all`` of
+``parallel.collectives``, rank ``r`` runs its ``E / ep`` experts on
+``[E / ep, ep * C, d]``, the outputs go back by the reverse exchange,
+and ``aux`` and the routing stats are averaged over the ranks.  The
+mesh's other axes change nothing of that function.  Two contexts:
+
+* **Without a strategy** (a local mesh), whole tensors come in and the
+  layer plays every rank: ``x.chunk(ep)``, each block on the one device.
+* **Inside a strategy's rank** (``ShardingStrategy.install`` binds each
+  rank's layer through ``_ep_setup``, as it binds the attention), the
+  rank's piece of the batch comes in (``batch_axes``, which must hold the
+  layer's axes) and the rank's module holds its ``E / ep`` experts (the
+  rules' ``"experts": "ep"``).  The reference's block ``b`` spans the
+  ``R = pieces / ep`` pieces ``b * R .. b * R + R - 1``: the pieces are
+  permuted (``ppermute`` over the batch axes) so that the ``R`` ranks of
+  ep index ``b`` hold them, and gathered over the batch axes other than
+  ``axis``, so each of those ranks routes the whole block with the
+  reference's capacity (the routing and the experts' products repeat
+  ``R`` times).  Each rank keeps only its own piece's outputs and sends
+  them home by the inverse permutation; the gather's backward sums the
+  ranks' gradients of a piece, so each token's gradient reaches the gate
+  and the experts once, and ``aux``, averaged over the ep group with
+  Megatron's identity backward, is counted ``R`` times, as the
+  reference's loss counts it.  An expert slice's gradient is partial
+  over the ``R`` replicas: ``ShardedModel.reduce_grads`` sums it over
+  them.  A layer without a mesh under a strategy routes the whole batch
+  as one block, as the reference's does under ``jit``.
 
 The gates' ``w`` is kept in torch's ``(E, d)`` layout and applied with
 ``F.linear`` (``interop.from_jax`` transposes the JAX ``(d, E)`` array);
@@ -48,7 +71,8 @@ from torch import nn
 from hetu_tpu_torch.core.device import resolve_device
 from hetu_tpu_torch.init import normal, zeros
 from hetu_tpu_torch.ops import gelu
-from hetu_tpu_torch.parallel.collectives import all_to_all
+from hetu_tpu_torch.parallel.collectives import (all_gather, all_reduce_mean,
+                                                 all_to_all, ppermute)
 
 __all__ = [
     "TopKGate", "HashGate", "KTop1Gate", "SAMGate", "BalanceGate",
@@ -439,6 +463,15 @@ class ExpertMLP(nn.Module):
         self.activation = activation
         self.num_experts = num_experts
 
+    def _tp_setup(self, handle, specs: dict, index: dict) -> None:
+        """A strategy's rank holds the experts of its ep index: the rules
+        may place the expert dimension, and nothing else."""
+        for attr, spec in specs.items():
+            if any(e is not None for e in spec[1:]):
+                raise NotImplementedError(
+                    f"ExpertMLP.{attr} sharded {spec}: only the expert "
+                    f"dimension is placed (over the layer's ep axes)")
+
     def forward(self, x, first: int = 0):
         """x ``[n, tokens, dim]`` through experts ``first .. first+n-1``
         (all of them by default) -> the same shape."""
@@ -454,14 +487,37 @@ def _pmean(values):
     return sum(values[1:], values[0]) / len(values)
 
 
+def _ravel(coords: dict, axes, shape: dict) -> int:
+    """The combined index over ``axes``, the first outermost."""
+    i = 0
+    for a in axes:
+        i = i * shape[a] + coords[a]
+    return i
+
+
+def _unravel(i: int, axes, shape: dict) -> dict:
+    out = {}
+    for a in reversed(axes):
+        out[a] = i % shape[a]
+        i //= shape[a]
+    return out
+
+
+def _permute(shards, axis, *, perm, mesh):
+    return ppermute(shards, perm, axis, mesh=mesh)
+
+
 class MoELayer(nn.Module):
     """Gate, dispatch, experts, combine.  ``mesh=None`` (or ``ep`` of 1) is
-    the single-group layer; a local mesh with ``ep > 1`` runs expert
-    parallelism over its ranks.
+    the single-group layer; a mesh whose ``axis`` (a name or a tuple of
+    names) is above 1 runs expert parallelism over its ranks (the module
+    docstring's two contexts).
 
     Call: ``y, aux = moe(x, training=True)`` with x ``[..., dim]``;
     ``with_stats=True`` returns ``(y, (aux, stats))`` with
     :func:`routing_stats` of the call's plan."""
+
+    _rank = None   # (handle, batch axes, ep axes) inside a strategy's rank
 
     def __init__(self, gate: nn.Module, experts: ExpertMLP, *, mesh=None,
                  axis: "str | Sequence[str]" = "ep"):
@@ -471,16 +527,29 @@ class MoELayer(nn.Module):
         self.mesh = mesh
         self.axis = (axis,) if isinstance(axis, str) else tuple(axis)
         if mesh is not None:
-            if len(self.axis) > 1:
-                raise NotImplementedError(
-                    f"the hierarchical expert exchange over {self.axis} "
-                    f"waits for ROADMAP queue 1 item 10 part 5")
-            others = [a for a, n in mesh.shape.items()
-                      if n > 1 and a not in self.axis]
-            if others and mesh.shape[self.axis[0]] > 1:
-                raise NotImplementedError(
-                    f"expert parallelism beside the mesh axes {others} "
-                    f"waits for ROADMAP queue 1 item 10 part 5")
+            for a in self.axis:
+                if a not in mesh.axis_names:
+                    raise ValueError(f"axis {a!r} not in mesh axes "
+                                     f"{mesh.axis_names}")
+
+    def _ep_setup(self, handle, batch_axes: tuple) -> None:
+        """Bind this layer to a strategy's rank (``handle``), whose piece
+        of the batch is cut over ``batch_axes`` (the module docstring's
+        second context)."""
+        mesh = handle.mesh
+        if self.mesh is not None and \
+                dict(self.mesh.shape) != dict(mesh.shape):
+            raise ValueError(f"the MoE layer's mesh {self.mesh.shape} is "
+                             f"not its rank's {mesh.shape}")
+        ep_axes = tuple(a for a in (self.axis if self.mesh is not None
+                                    else ()) if mesh.shape[a] > 1)
+        batch = tuple(a for a in batch_axes if mesh.shape[a] > 1)
+        if not set(ep_axes) <= set(batch):
+            raise NotImplementedError(
+                f"expert parallelism over {ep_axes} under a strategy that "
+                f"splits the batch over {tuple(batch_axes)}: the layer's "
+                f"axes must be among the batch axes")
+        self._rank = (handle, batch, ep_axes)
 
     def _route_in(self, gate, t, training):
         """(ex_in [E,C,d], routing context, aux).  The index path when the
@@ -530,6 +599,13 @@ class MoELayer(nn.Module):
 
     def forward(self, x, *, training: bool = True,
                 with_stats: bool = False):
+        if self._rank is not None:
+            return self._forward_rank(x, training, with_stats)
+        if self.mesh is not None and hasattr(self.mesh, "group") and \
+                self.ep_size() > 1:
+            raise ValueError(
+                "on a process mesh the MoE layer runs bound to its rank: "
+                "install the model with ShardingStrategy(mesh=...)")
         shape = x.shape
         d = shape[-1]
         ep = self.ep_size()
@@ -565,6 +641,60 @@ class MoELayer(nn.Module):
             per_rank = [self._stats_of(r[1], E) for r in routed]
             stats = {k: _pmean([s[k] for s in per_rank])
                      for k in per_rank[0]}
+            return y, (aux, stats)
+        return y, aux
+
+
+    def _forward_rank(self, x, training, with_stats):
+        """One strategy rank's call on its piece ``x`` (the module
+        docstring's second context)."""
+        handle, batch, ep_axes = self._rank
+        mesh = handle.mesh
+        shape = mesh.shape
+        E = self.experts.num_experts
+        ep = math.prod(shape[a] for a in ep_axes)
+        if E % ep or self.experts.w1.shape[0] != E // ep:
+            raise ValueError(f"a rank holds {self.experts.w1.shape[0]} of "
+                             f"{E} experts over ep={ep}: the rules must "
+                             f"place the experts over {ep_axes}")
+        reps = tuple(a for a in batch if a not in ep_axes)
+        R = math.prod(shape[a] for a in reps)
+        i = _ravel(mesh.coords(mesh.held[handle.index]), reps, shape)
+        # the rank at batch index p routes block j(p) as replica i(p) and
+        # keeps the piece j(p) * R + i(p): ``perm`` sends it home
+        perm = []
+        for p in range(R * ep):
+            c = _unravel(p, batch, shape)
+            perm.append((p, _ravel(c, ep_axes, shape) * R
+                         + _ravel(c, reps, shape)))
+        moved = any(s != t for s, t in perm)
+        xb = x
+        if moved:
+            xb = handle.collective(_permute, xb, batch,
+                                   perm=[(t, s) for s, t in perm])
+        if R > 1:
+            xb = handle.collective(all_gather, xb, reps, gather_dim=0)
+        t = xb.reshape(-1, x.shape[-1])
+        ex_in, ctx, aux = self._route_in(self.gate, t, training)
+        if ep > 1:
+            ex_in = handle.collective(all_to_all, ex_in, ep_axes,
+                                      split_dim=0, concat_dim=1)
+        ex_out = self.experts(ex_in)
+        if ep > 1:
+            ex_out = handle.collective(all_to_all, ex_out, ep_axes,
+                                       split_dim=1, concat_dim=0)
+        y = self._route_out(ctx, ex_out, t.dtype).reshape(xb.shape)
+        if R > 1:
+            y = y.chunk(R, dim=0)[i]
+        if moved:
+            y = handle.collective(_permute, y, batch, perm=perm)
+        stats = self._stats_of(ctx, E) if with_stats else None
+        if ep > 1:
+            aux = handle.collective(all_reduce_mean, aux, ep_axes)
+            if with_stats:
+                stats = {k: handle.collective(all_reduce_mean, v, ep_axes)
+                         for k, v in sorted(stats.items())}
+        if with_stats:
             return y, (aux, stats)
         return y, aux
 

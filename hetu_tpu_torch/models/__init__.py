@@ -6,7 +6,8 @@ from hetu_tpu_torch.models.bert import (BertConfig, BertForMaskedLM,
                                         BertMoEModel, bert_base, bert_large)
 from hetu_tpu_torch.models.ctr import (DCN, CTRConfig, DeepCrossing, DeepFM,
                                        WideDeep, make_embedding)
-from hetu_tpu_torch.models.gnn import (GCN, GraphConv, GraphIndex,
+from hetu_tpu_torch.models.gnn import (GCN, DistGCN15D, GraphConv,
+                                       GraphIndex, dist_spmm_15d,
                                        normalize_adjacency, sample_subgraph,
                                        spmm_edges)
 from hetu_tpu_torch.models.gpt import (GPT, GPTConfig, gpt2_large,
@@ -38,4 +39,4 @@ __all__ = ["GPT", "GPTConfig", "gpt2_small", "gpt2_medium", "gpt2_large",
            "T5ForConditionalGeneration", "t5_small", "t5_base", "t5_large",
            "RNNCell", "LSTMCell", "GRUCell", "RNN", "RNNClassifier",
            "normalize_adjacency", "spmm_edges", "GraphConv", "GCN",
-           "GraphIndex", "sample_subgraph"]
+           "dist_spmm_15d", "DistGCN15D", "GraphIndex", "sample_subgraph"]

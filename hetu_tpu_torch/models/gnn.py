@@ -7,9 +7,17 @@ a node's sum, and its last bits, may change from run to run).
 ``normalize_adjacency`` computes the symmetric GCN weights in numpy
 float64, as the reference does.  ``GraphConv.w`` keeps the JAX ``(in,
 out)`` layout (``x @ w``), so the weight bridge copies it as it is.
-``GraphIndex`` and ``sample_subgraph`` are numpy, copied.  The 1.5D
-partitioned pair (``dist_spmm_15d``, ``DistGCN15D``) needs a ``gr x gc``
-device mesh and is not ported yet (ROADMAP queue 1).
+``GraphIndex`` and ``sample_subgraph`` are numpy, copied.
+
+The 1.5D partitioned pair (``dist_spmm_15d``, ``DistGCN15D``) runs over a
+``gr x gc`` mesh (``parallel.mesh.make_grid_mesh``): rank ``(i, j)``
+multiplies A's block ``[N/r, N/c]`` by X's shard ``[N/c, F]`` (the same on
+every row of the grid), the partial products are summed over ``gc`` and
+the result is row-sharded.  On a local mesh whole tensors come in and
+go out, every rank's product at its own shapes on the one device, the
+sum over ``gc`` the group's partials gathered and added in group order;
+on a process mesh each process multiplies its own blocks and the sum is
+an all-reduce over its ``gc`` group, the rows then gathered over ``gr``.
 """
 
 from __future__ import annotations
@@ -24,9 +32,11 @@ from hetu_tpu_torch.core.device import resolve_device
 from hetu_tpu_torch.core.prng import split
 from hetu_tpu_torch.init import xavier_uniform, zeros
 from hetu_tpu_torch.ops.nn import dropout
+from hetu_tpu_torch.parallel import collectives as col
 
 __all__ = ["normalize_adjacency", "spmm_edges", "dense_adjacency",
-           "GraphConv", "GCN", "GraphIndex", "sample_subgraph"]
+           "GraphConv", "GCN", "dist_spmm_15d", "DistGCN15D", "GraphIndex",
+           "sample_subgraph"]
 
 
 def normalize_adjacency(edge_index, num_nodes: int, *, add_self_loops=True,
@@ -120,6 +130,93 @@ class GCN(nn.Module):
                 if training and key is not None and self.dropout_rate > 0:
                     key, sub = split(key)
                     x = dropout(x, self.dropout_rate, sub, training=True)
+        return x
+
+
+# -- 1.5D distributed aggregation ---------------------------------------------
+
+
+def dist_spmm_15d(a_dense, x, mesh, *, row_axis: str = "gr",
+                  col_axis: str = "gc"):
+    """1.5D partitioned ``Z = A @ X`` over a ``(row x col)`` mesh
+    (DistGCN_15d.py's broadcast-and-compute loop, CAGNET's 1.5D
+    algorithm): rank ``(i, j)`` holds A's block ``[N/r, N/c]`` and X's
+    shard ``[N/c, F]``, its partial product is summed over ``col_axis``,
+    and row block ``i`` of Z is the result (the module docstring says how
+    each mesh runs it).  Differentiable in ``a_dense`` and ``x``."""
+    r, c = mesh.shape[row_axis], mesh.shape[col_axis]
+    n = a_dense.shape[0]
+    if n % r or a_dense.shape[1] % c or a_dense.shape[1] != x.shape[0]:
+        raise ValueError(f"A {tuple(a_dense.shape)} and X {tuple(x.shape)} "
+                         f"do not split over {row_axis}={r} x "
+                         f"{col_axis}={c}")
+    rows, cols = n // r, a_dense.shape[1] // c
+
+    def block(coords):
+        i, j = coords[row_axis], coords[col_axis]
+        return a_dense[i * rows:(i + 1) * rows, j * cols:(j + 1) * cols]
+
+    if hasattr(mesh, "group"):
+        coords = mesh.coords(mesh.rank)
+        xs = col.copy_to_group([x], row_axis, mesh=mesh)
+        xs = col.scatter_to_group(xs, col_axis, dim=0, mesh=mesh)
+        z = col.all_reduce([block(coords) @ xs[0]], col_axis, mesh=mesh)
+        return col.gather_from_group(z, row_axis, dim=0, mesh=mesh)[0]
+    partial = []
+    for rank in mesh.held:
+        coords = mesh.coords(rank)
+        j = coords[col_axis]
+        partial.append(block(coords) @ x[j * cols:(j + 1) * cols])
+    parts = col.all_gather(partial, col_axis, gather_dim=0, tiled=False,
+                           mesh=mesh)
+    out = []
+    for rank in mesh.groups(row_axis)[0]:
+        # rank (i, 0)'s gc group holds row block i's partials
+        stack = parts[rank]
+        z = stack[0]
+        for k in range(1, c):
+            z = z + stack[k]
+        out.append(z)
+    return torch.cat(out, dim=0)
+
+
+class DistGCN15D(nn.Module):
+    """GCN whose aggregation runs 1.5D-partitioned over a ``gr x gc``
+    mesh (:func:`dist_spmm_15d`): ``ws.i (in, out)`` in the JAX layout
+    (``x @ w``), the bias added after the aggregation, as ``GraphConv``
+    adds it.  The dense-block variant (the adjacency materialized as
+    ``[N, N]`` blocks) is the one for the mid-size graphs the reference's
+    DistGCN examples target."""
+
+    def __init__(self, in_features: int, hidden: int, num_classes: int,
+                 mesh, num_layers: int = 2, row_axis: str = "gr",
+                 col_axis: str = "gc", dtype=torch.float32, *,
+                 generator=None, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        dims = [in_features] + [hidden] * (num_layers - 1) + [num_classes]
+        init = xavier_uniform()
+        self.ws = nn.ParameterList(
+            nn.Parameter(init(generator, (dims[i], dims[i + 1]), dtype,
+                              device)) for i in range(num_layers))
+        self.bs = nn.ParameterList(
+            nn.Parameter(zeros(None, (dims[i + 1],), dtype, device))
+            for i in range(num_layers))
+        self.mesh = mesh
+        self.row_axis = row_axis
+        self.col_axis = col_axis
+
+    def forward(self, a_dense, x):
+        last = len(self.ws) - 1
+        for i, (w, b) in enumerate(zip(self.ws, self.bs)):
+            x = x @ w.to(x.dtype)
+            x = dist_spmm_15d(a_dense, x, self.mesh, row_axis=self.row_axis,
+                              col_axis=self.col_axis)
+            x = x + b.to(x.dtype)
+            if i < last:
+                x = torch.relu(x)
         return x
 
 

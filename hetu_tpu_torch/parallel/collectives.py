@@ -33,10 +33,13 @@ the whole sequence outside it (``parallel.ring_attention``).
 :func:`ppermute` carries its gradient across processes too: its
 backward is the permutation's inverse, as ``lax.ppermute``'s transpose
 is (the pipelines' activation hops, ``parallel.pipeline``, and the
-ring's K/V hops), and so does :func:`all_to_all`: its backward is the
-transposed exchange (split and concatenated dimensions swapped), as
-``lax.all_to_all``'s is (Ulysses).  The others carry no gradient across
-processes.
+ring's K/V hops), and so does :func:`all_to_all`, over one axis or a
+tuple of them: its backward is the transposed exchange (split and
+concatenated dimensions swapped), as ``lax.all_to_all``'s is (Ulysses,
+the expert exchange), and :func:`all_gather`: its backward is the
+reduce-scatter of the group's gradients, as ``lax.all_gather``'s
+transpose is (the expert layer's routing block under a strategy).  The
+others carry no gradient across processes.
 
 **Backends.**  Where the process group's backend lacks an op for the
 tensor's device (gloo with CUDA tensors takes ``all_reduce`` and
@@ -405,13 +408,41 @@ def reduce_scatter(shards: list, axis=None, *, scatter_dim: int = 0,
     return out
 
 
+class _ProcAllGather(torch.autograd.Function):
+    """The tiled gather over ``axis``'s process group; backward, the sum
+    over the group of the gradients of this process's slice."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        parts = _run("all_gather", mesh, x,
+                     lambda: _dist_gather(x, mesh, axis),
+                     composed=not _native(mesh, x, "all_gather"))
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        mesh, axis, dim = ctx.mesh, ctx.axis, ctx.dim
+        dy = dy.contiguous()
+        _, ranks = mesh.group(axis)
+        n, at = len(ranks), ranks.index(mesh.rank)
+        dx = _run("reduce_scatter", mesh, dy,
+                  lambda: _dist_sum(dy, mesh, axis).chunk(n, dim)[at]
+                  .contiguous(), composed=True)
+        return dx, None, None, None
+
+
 def all_gather(shards: list, axis=None, *, gather_dim: int = 0,
                tiled: bool = True, mesh=None) -> list:
     """Every rank gets the group's shards joined along ``gather_dim``
     (``lax.all_gather``; ``tiled=False`` stacks them on a new
-    dimension there)."""
+    dimension there).  Differentiable on both meshes: the backward gives
+    each rank the sum over the group of its slice's gradients."""
     if _process(mesh):
         x = shards[0]
+        if tiled and torch.is_grad_enabled() and x.requires_grad:
+            return [_ProcAllGather.apply(x, mesh, axis,
+                                         gather_dim % x.dim())]
         parts = _run("all_gather", mesh, x,
                      lambda: _dist_gather(x, mesh, axis),
                      composed=not _native(mesh, x, "all_gather"))

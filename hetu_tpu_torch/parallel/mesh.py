@@ -13,33 +13,38 @@ one interface (``shape``, ``axis_names``, ``ranks()``, ``held``):
   world (``launch.initialize``); a collective calls ``torch.distributed``
   over the process group of its axis.
 
-Both admit ``dp``, ``sp`` and ``tp`` together (sequence parallelism
-beside data and tensor parallelism: ``parallel.ring_attention``),
-``pp`` beside ``dp`` and ``tp`` (``parallel.pipeline``,
-``parallel.pipedream``) and ``ep`` alone on a local mesh
-(``layers.moe.MoELayer``).
+Both admit ``dp``, ``ep``, ``sp`` and ``tp`` together (sequence
+parallelism beside data and tensor parallelism:
+``parallel.ring_attention``; expert parallelism beside them:
+``layers.moe.MoELayer``) and ``pp`` beside ``dp``, ``ep`` and ``tp``
+(``parallel.pipeline``, ``parallel.pipedream``).
 
 A rank's coordinates run over ``DEFAULT_AXES`` in row-major order, ``pp``
 outermost and ``tp`` innermost, as a JAX mesh built by ``make_mesh``
 orders its devices, so rank ``r`` of a mesh is the ``r``-th device of the
-JAX mesh of the same spec.  Refused, each naming its item of ROADMAP
-queue 1: ``ep`` beside another axis and ``ep`` across processes (part
-5), and ``sp`` beside ``pp`` (part 12: the pipelines' ticks would meet
-the ring's groups in an order no test has checked).
+JAX mesh of the same spec.  Refused, naming its item of ROADMAP queue 1:
+``sp`` beside ``pp`` (part 12: the pipelines' ticks would meet the ring's
+groups in an order no test has checked).
+
+:func:`make_grid_mesh` builds either mesh over axes of the caller's own
+names, the counterpart of ``jax.sharding.Mesh(devices.reshape(r, c),
+("gr", "gc"))`` (``models.gnn.dist_spmm_15d``): rank ``r`` is the
+``r``-th device of that array, its first name outermost.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import math
 from typing import Optional, Sequence
 
 import torch
 
 from hetu_tpu_torch.core.device import resolve_device
 
-__all__ = ["MeshSpec", "LocalMesh", "ProcessMesh", "make_mesh",
-           "DEFAULT_AXES", "local_mesh_size"]
+__all__ = ["MeshSpec", "GridSpec", "LocalMesh", "ProcessMesh", "make_mesh",
+           "make_grid_mesh", "DEFAULT_AXES", "local_mesh_size"]
 
 # Canonical axis order, outermost to innermost, as in the JAX package.
 DEFAULT_AXES = ("pp", "dp", "ep", "sp", "tp")
@@ -63,12 +68,30 @@ class MeshSpec:
         return tuple(getattr(self, a) for a in order)
 
 
+@dataclasses.dataclass(frozen=True)
+class GridSpec:
+    """Sizes of axes with names of the caller's own (``names[i]`` of size
+    ``sizes[i]``, the first outermost), for a mesh that is not a
+    ``MeshSpec``'s."""
+
+    names: tuple
+    sizes: tuple
+
+    def __post_init__(self):
+        if len(self.names) != len(self.sizes) or \
+                len(set(self.names)) != len(self.names):
+            raise ValueError(f"axes {self.names} of sizes {self.sizes}")
+
+    def total(self) -> int:
+        return math.prod(self.sizes)
+
+    def axis_sizes(self, order: Sequence[str] = None):
+        size = dict(zip(self.names, self.sizes))
+        return tuple(size[a] for a in (order or self.names))
+
+
 def _check_axes(spec: MeshSpec) -> None:
     wide = {a for a in DEFAULT_AXES if getattr(spec, a) > 1}
-    if "ep" in wide and len(wide) > 1:
-        raise NotImplementedError(
-            f"ep beside the axes {sorted(wide - {'ep'})} waits for ROADMAP "
-            f"queue 1 item 10 part 5")
     if {"sp", "pp"} <= wide:
         raise NotImplementedError(
             "sp beside pp waits for ROADMAP queue 1 item 10 part 12")
@@ -79,11 +102,15 @@ class _Mesh:
     coordinates."""
 
     spec: MeshSpec
-    axis_names = DEFAULT_AXES
+
+    @property
+    def axis_names(self) -> tuple:
+        return getattr(self.spec, "names", DEFAULT_AXES)
 
     @property
     def shape(self) -> dict:
-        return dict(zip(self.axis_names, self.spec.axis_sizes()))
+        return dict(zip(self.axis_names,
+                        self.spec.axis_sizes(self.axis_names)))
 
     @property
     def size(self) -> int:
@@ -204,15 +231,41 @@ def make_mesh(spec: Optional[MeshSpec] = None, *, device=None,
             raise ValueError(f"mesh {spec} needs {spec.total()} processes, "
                              f"the world has {n}")
     _check_axes(spec)
-    if spec.ep > 1:
-        raise NotImplementedError(
-            "ep across processes waits for ROADMAP queue 1 item 10 part 5")
+    return _process_mesh(spec, device)
+
+
+def _process_mesh(spec, device):
+    import torch.distributed as dist
     backend = dist.get_backend()
     if device is None:
         device = (torch.device("cuda", torch.cuda.current_device())
                   if backend == "nccl" else torch.device("cpu"))
     return ProcessMesh(spec, resolve_device(device), dist.get_rank(),
                        backend)
+
+
+def make_grid_mesh(axes: dict, *, device=None, processes: bool = False):
+    """A mesh over named axes other than ``MeshSpec``'s: ``axes`` maps
+    each name to its size, the first outermost
+    (``make_grid_mesh({"gr": 2, "gc": 4})`` is the port's
+    ``Mesh(devices.reshape(2, 4), ("gr", "gc"))``).  A
+    :class:`LocalMesh` on ``device`` (CUDA unless the caller passes
+    ``"cpu"``), or with ``processes=True`` a :class:`ProcessMesh` over
+    the ``torch.distributed`` world, whose size must be the product of
+    the sizes."""
+    spec = GridSpec(tuple(axes), tuple(int(n) for n in axes.values()))
+    if not processes:
+        return LocalMesh(spec, resolve_device(device))
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        raise RuntimeError("make_grid_mesh(processes=True) needs a "
+                           "torch.distributed world: call "
+                           "launch.initialize() first")
+    if spec.total() != dist.get_world_size():
+        raise ValueError(f"mesh {dict(axes)} needs {spec.total()} "
+                         f"processes, the world has "
+                         f"{dist.get_world_size()}")
+    return _process_mesh(spec, device)
 
 
 def local_mesh_size(mesh, axis: str) -> int:

@@ -18,12 +18,24 @@ itself, each one counted (``parallel.collectives.counts``):
   (``CNN_MP_RULES``' ``conv_out``) waits for ROADMAP queue 1 item 10
   part 7.
 * **Data parallelism.**  The batch's leading dimension splits over
-  ``dp`` (``batch_axes``), each rank's forward and backward run on its
-  piece (``parallel.ranks.run_ranks``), and the gradients go through
-  ``all_reduce_mean`` over dp or, where ZeRO shards the parameter,
-  ``reduce_scatter`` (stages 1 and 2: one flat bucket per kind; stage
-  3: below).  The reported loss is
-  the mean over dp of the ranks' losses.
+  ``batch_axes`` (``"dp"``, or a tuple such as ``("dp", "ep")``, cut
+  first name outermost as ``P(("dp", "ep"))`` cuts it), each rank's
+  forward and backward run on its piece (``parallel.ranks.run_ranks``),
+  and the gradients go through ``all_reduce_mean`` over the batch axes
+  or, where ZeRO shards the parameter, ``reduce_scatter`` over dp
+  (stages 1 and 2: one flat bucket per kind; stage 3: below).  The
+  reported loss is the mean over the batch axes of the ranks' losses.
+* **Expert parallelism** (``ep`` among the batch axes).  The rules place
+  the stacked experts over ``ep`` (``"experts": "ep"``), and
+  ``install`` binds each rank's ``MoELayer`` to its rank
+  (``_ep_setup``): the layer gathers the reference's routing block from
+  the pieces that hold it and runs the exchange over ``ep``
+  (``layers.moe``).  Each token counts once: a parameter replicated over
+  the batch axes gets the mean over all of them; an expert slice, whose
+  gradient already holds the tokens of every ep rank (the exchange's
+  backward) but only its replica's share of them, gets the sum over the
+  batch axes it is replicated on divided by the pieces (the mean over
+  ``dp``, divided by ``ep``).
 * **ZeRO** (``zero_stage``): 1 and 2 shard the optimizer slots' first
   dimension in the JAX layout (``_zero_shard``: the JAX package's rule,
   applied where the dimension is not already sharded and divides over
@@ -79,9 +91,12 @@ or its slots are sharded (their norms would need a reduction across
 ranks), models with floating state buffers (BatchNorm statistics) over
 dp > 1, a pipeline stage under a remat policy with ``tp > 1`` on a local
 mesh (the recomputation in the backward would meet the other ranks
-outside their run), a remat policy with ``sp > 1`` (the recomputed
-attention would run outside its rank) and ZeRO over the layers of a
-stack the rules leave unplaced.
+outside their run), a remat policy with ``sp > 1`` or with an expert
+layer whose rank meets others (the recomputed attention or routing
+would run outside its rank), ZeRO over the layers of a stack the rules
+leave unplaced, and, waiting for ROADMAP queue 1 item 11, batch axes
+other than ``dp`` and ``ep``, ZeRO with ``ep`` among them and ``ep``
+among them beside ``pp``.
 """
 
 from __future__ import annotations
@@ -131,14 +146,22 @@ class ShardingStrategy:
     def __init__(self, *, mesh=None, mesh_spec: Optional[MeshSpec] = None,
                  rules: AxisRules = DP_RULES, batch_axes: Any = "dp",
                  zero_stage: int = 0):
-        if batch_axes not in ("dp", None):
+        axes = (() if batch_axes is None else (batch_axes,)
+                if isinstance(batch_axes, str) else tuple(batch_axes))
+        if not set(axes) <= {"dp", "ep"}:
             raise NotImplementedError(
                 f"batch_axes={batch_axes!r}: the port splits the batch "
-                f"over 'dp' (or not at all)")
+                f"over 'dp' and 'ep' (or not at all); other axes wait for "
+                f"ROADMAP queue 1 item 11")
+        if axes not in ((), ("dp",)) and zero_stage:
+            raise NotImplementedError(
+                f"ZeRO stage {zero_stage} with batch_axes={batch_axes!r} "
+                f"waits for ROADMAP queue 1 item 11")
         self._mesh = mesh
         self.mesh_spec = mesh_spec
         self.rules = rules
         self.batch_axes = batch_axes
+        self.batch = axes
         self.zero_stage = zero_stage
 
     @property
@@ -244,6 +267,19 @@ class ShardedModel:
         self.stage = strategy.zero_stage
         dp = mesh.shape["dp"]
         self.dp = dp
+        # the axes the batch is cut over, and its pieces
+        self.batch = tuple(a for a in strategy.batch
+                           if mesh.shape.get(a, 1) > 1)
+        self.pieces = 1
+        for a in self.batch:
+            self.pieces *= mesh.shape[a]
+        # what the losses and gradients are averaged over (dp also where
+        # the batch is not cut: its ranks hold equal gradients)
+        self.reduce_axes = self.batch or (("dp",) if dp > 1 else ())
+        if self.batch not in ((), ("dp",)) and mesh.shape["pp"] > 1:
+            raise NotImplementedError(
+                f"batch_axes={strategy.batch_axes!r} beside pp: ROADMAP "
+                f"queue 1 item 11")
         floating = [n for n, b in state_tensors(model).items()
                     if not isinstance(b, torch.nn.Parameter)
                     and b.is_floating_point()]
@@ -258,6 +294,14 @@ class ShardedModel:
                 f"recomputation in the backward would run the attention "
                 f"outside its rank; sequence parallelism under a remat "
                 f"policy waits for ROADMAP queue 1 item 10 part 12")
+        experts = any(hasattr(m, "_ep_setup") for m in model.modules())
+        if experts and remat != "none" and (
+                mesh.shape["ep"] > 1 or (dp > 1 and strategy.batch)):
+            raise NotImplementedError(
+                f"remat={remat!r} with expert layers whose ranks meet: the "
+                f"recomputation in the backward would route outside its "
+                f"rank; expert parallelism under a remat policy waits for "
+                f"ROADMAP queue 1 item 10 part 12")
         if self.stage >= 3 and dp > 1 and remat != "none":
             raise NotImplementedError(
                 f"ZeRO stage 3 with remat={remat!r}: the recomputation "
@@ -370,6 +414,10 @@ class ShardedModel:
         for mod in model.modules():
             if isinstance(mod, Pipelined):
                 mod._pp_setup(self.handles[i], c, shape)
+            ep_setup = getattr(mod, "_ep_setup", None)
+            if ep_setup is not None:
+                # an expert layer routes its rank's block over the batch
+                ep_setup(self.handles[i], self.batch)
             bind = getattr(getattr(mod, "attn_fn", None), "for_rank", None)
             if bind is not None:
                 # sequence-parallel attention meets its rank's sp group
@@ -515,23 +563,33 @@ class ShardedModel:
         return full.as_strided(saved.shape, saved.stride, saved.offset)
 
     # -- the step -------------------------------------------------------------
+    def _piece_index(self, c: dict) -> int:
+        """The index of the batch piece of the rank at ``c`` (its
+        coordinates over the batch axes, the first outermost)."""
+        k = 0
+        for a in self.batch:
+            k = k * self.mesh.shape[a] + c[a]
+        return k
+
     def split_batch(self, batch) -> list:
         """Each held rank's piece of ``batch`` (every tensor leaf's dim 0
-        split over dp)."""
+        split over the batch axes)."""
+        n_pieces = self.pieces
+
         def piece(x, k):
             if isinstance(x, dict):
                 return {a: piece(v, k) for a, v in x.items()}
             if isinstance(x, (list, tuple)):
                 return type(x)(piece(v, k) for v in x)
-            if isinstance(x, torch.Tensor) and x.dim() and \
-                    self.strategy.batch_axes == "dp" and self.dp > 1:
-                if x.shape[0] % self.dp:
+            if isinstance(x, torch.Tensor) and x.dim() and n_pieces > 1:
+                if x.shape[0] % n_pieces:
                     raise ValueError(f"batch of {x.shape[0]} does not split "
-                                     f"over dp={self.dp}")
-                n = x.shape[0] // self.dp
+                                     f"over {self.batch} ({n_pieces} "
+                                     f"pieces)")
+                n = x.shape[0] // n_pieces
                 return x[k * n:(k + 1) * n]
             return x
-        return [piece(batch, c["dp"]) for c in self.coords]
+        return [piece(batch, self._piece_index(c)) for c in self.coords]
 
     def run(self, fn_of_rank) -> list:
         """``fn_of_rank(i)`` for every held rank, through ``run_ranks``;
@@ -583,21 +641,25 @@ class ShardedModel:
         return out
 
     def mean_loss(self, losses: list):
-        """The mean over dp of the ranks' losses (detached)."""
+        """The mean over the batch axes of the ranks' losses
+        (detached)."""
         losses = [loss.detach() for loss in losses]
-        if self.dp == 1:
+        if not self.reduce_axes:
             return losses[0]
-        return col.all_reduce_mean(losses, "dp", mesh=self.mesh)[0]
+        return col.all_reduce_mean(losses, self.reduce_axes,
+                                   mesh=self.mesh)[0]
 
     def reduce_grads(self) -> list:
-        """Each rank's gradients for :meth:`update`: the mean over dp
-        (one ``all_reduce_mean`` bucket), and under stages 1 and 2 the
-        ZeRO-sharded ones as this rank's slice of the mean (one
-        ``reduce_scatter`` bucket).  Under stage 3 a ZeRO-sharded
-        parameter's slice already has its part of the mean: the backward
-        of its gather reduce-scattered it.  No gradient is partial over
-        ``sp`` (the attention's chunk cut gathers its gradients), so none
-        is reduced over it."""
+        """Each rank's gradients for :meth:`update`: the mean over the
+        batch axes (one ``all_reduce_mean`` bucket for each set of axes a
+        parameter is replicated on; a parameter placed over a batch axis,
+        an expert slice, gets the sum over the others divided by the
+        pieces), and under stages 1 and 2 the ZeRO-sharded ones as this
+        rank's slice of the mean (one ``reduce_scatter`` bucket).  Under
+        stage 3 a ZeRO-sharded parameter's slice already has its part of
+        the mean: the backward of its gather reduce-scattered it.  No
+        gradient is partial over ``sp`` (the attention's chunk cut
+        gathers its gradients), so none is reduced over it."""
         n = len(self.held)
         grads = []
         for m in self.models:
@@ -609,11 +671,32 @@ class ShardedModel:
         if self.pp > 1:
             self._bucket(grads, lambda nm: self.place[nm].stage is None,
                          lambda f: col.all_reduce(f, "pp", mesh=self.mesh))
-        if self.dp == 1:
+        if not self.reduce_axes:
             return grads
         zero = set(self._zero_names())
-        self._bucket(grads, lambda nm: nm not in zero,
-                     lambda f: col.all_reduce_mean(f, "dp", mesh=self.mesh))
+        sets = {}
+        for nm in self.place:     # a pp rank holds its stage's blocks
+            if nm not in zero:
+                held = {a for e in self.place[nm].tp_spec if e is not None
+                        for a in ((e,) if isinstance(e, str) else e)}
+                axes = tuple(a for a in self.reduce_axes if a not in held)
+                sets.setdefault(axes, set()).add(nm)
+        for axes, names in sets.items():
+            share = 1
+            for a in self.reduce_axes:
+                share *= self.mesh.shape[a]
+            for a in axes:
+                share //= self.mesh.shape[a]
+            if axes:
+                self._bucket(grads, names.__contains__,
+                             lambda f, axes=axes: col.all_reduce_mean(
+                                 f, axes, mesh=self.mesh))
+            if share > 1:
+                for g in grads:
+                    for nm in names & set(g):
+                        g[nm] = g[nm] / share
+        if self.dp == 1:
+            return grads
         if zero and self.stage < 3:
             names = [nm for nm in grads[0] if nm in zero]
             flats = []

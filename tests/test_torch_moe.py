@@ -243,19 +243,27 @@ def test_moe_in_train_step(ep_mesh):
 
 def test_moe_hierarchical_ep_and_other_axes_are_refused():
     """The JAX package factors the exchange over (ep, tp); the port's
-    local mesh refuses it, and ep beside another axis, naming the
-    transport's queue item."""
+    local mesh runs it as the flat exchange over the pair, and ep beside
+    another axis as the ep blocks alone: both equal the single-group
+    layer on ``x.chunk(ep)``.  An axis the mesh lacks and experts that
+    do not divide over ep are refused."""
     d, E = 8, 4
-    gate = moe.TopKGate(d, E, 2, **CPU)
+    gate = moe.TopKGate(d, E, 2, capacity_factor=8.0, **CPU)
     experts = moe.ExpertMLP(E, d, 16, **CPU)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    one = moe.MoELayer(gate, experts)
+    x = _tokens(16, d, 5)
+    for mesh, axis, ep in (
+            (make_mesh(MeshSpec(ep=2, tp=2), **CPU), ("ep", "tp"), 4),
+            (make_mesh(MeshSpec(ep=2, sp=2), **CPU), "ep", 2),
+            (make_mesh(MeshSpec(ep=2, dp=2), **CPU), "ep", 2)):
+        y, aux = moe.MoELayer(gate, experts, mesh=mesh, axis=axis)(x)
+        parts = [one(s) for s in x.chunk(ep)]
+        torch.testing.assert_close(y, torch.cat([p[0] for p in parts]),
+                                   rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(aux, sum(p[1] for p in parts) / ep)
+    with pytest.raises(ValueError, match="not in mesh axes"):
         moe.MoELayer(gate, experts, mesh=make_mesh(MeshSpec(ep=2), **CPU),
-                     axis=("ep", "tp"))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        moe.MoELayer(gate, experts,
-                     mesh=make_mesh(MeshSpec(ep=2, sp=2), **CPU))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_mesh(MeshSpec(ep=2, dp=2), **CPU)
+                     axis=("ep", "xp"))
     with pytest.raises(ValueError, match="divisible"):
         moe.MoELayer(gate, moe.ExpertMLP(E, d, 16, **CPU),
                      mesh=make_mesh(MeshSpec(ep=8), **CPU))(_tokens(16, d))

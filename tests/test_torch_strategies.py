@@ -580,8 +580,9 @@ def test_refusals(jax_params):
     assert _mesh(sp=2, tp=2).shape["sp"] == 2     # sequence parallelism too
     with pytest.raises(NotImplementedError, match="part 12"):
         _mesh(sp=2, pp=2)
-    with pytest.raises(NotImplementedError, match="part 5"):
-        _mesh(ep=2, tp=2)
+    assert _mesh(ep=2, tp=2).shape["ep"] == 2     # expert parallelism too
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tstrat.ShardingStrategy(batch_axes=("dp", "tp"))
     conv = torch.nn.Sequential(Conv2d(3, 8, **CPU))
     with pytest.raises(NotImplementedError, match="item 10 part 7"):
         Trainer(conv, AdamOptimizer(1e-2), _loss,
